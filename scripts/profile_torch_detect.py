@@ -1,0 +1,143 @@
+#!/usr/bin/env python3
+"""Where the time goes in jda_tpu_torch's detection path, on one CUDA card.
+
+    python3 scripts/profile_torch_detect.py
+
+For the bench shapes (VGA at B=16, 1080p at B=4; T=5/K=540 synthetic model
+with the realistic drop profile; scale 1.25, min 24, th -0.5) it prints
+
+  * host wall time per phase of one fused batch: upload, dense stage-0
+    filter, compactions, stage-0 leaf unpack, cart chunks, regressions and
+    the host harvest (each phase synchronises the device before and after,
+    so the phases add up to a slower batch than the unsynchronised one);
+  * from torch.profiler over one unsynchronised batch: the device's busy
+    time (sum of kernel times), the number of kernels launched and the
+    device's idle share of the batch's wall time;
+  * the card, as nvidia-smi gives its name and power limit.
+"""
+
+import collections
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+KW = dict(scale=1.25, min_size=24, max_size=-1, th=-0.5)
+
+
+def make_image(h, w, seed):
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 256, (h // 8 + 2, w // 8 + 2)).astype(np.float32)
+    img = np.kron(base, np.ones((8, 8), np.float32))[:h, :w]
+    noise = rng.normal(0, 12, (h, w))
+    return np.clip(img + noise, 0, 255).astype(np.uint8)
+
+
+def phase_times(det, imgs):
+    """Synchronised host time per instrumented phase of one batch."""
+    import torch
+    from jda_tpu_torch.detect import Detector
+    from jda_tpu_torch.ops import cascade as C
+    from jda_tpu_torch.ops import dense0 as D0
+    from jda_tpu_torch.ops import fused as F
+
+    acc = collections.OrderedDict()
+    patches = [
+        (D0, "stage0_filter_all_scales", "dense stage-0 filter"),
+        (F, "compact", "compaction"),
+        (F, "unpack_lbf", "stage-0 leaf unpack"),
+        (C, "carts_descend", "tree descent (stages 1-4)"),
+        (C, "score_chain", "score chain (stages 1-4)"),
+        (C, "apply_regression", "exact regression (stages 0-4)"),
+        (Detector, "_upload", "upload"),
+        (Detector, "_harvest_batch", "harvest + NMS (host)"),
+    ]
+    saved = []
+    for mod, name, label in patches:
+        fn = getattr(mod, name)
+        saved.append((mod, name, fn))
+
+        def timed(*a, _fn=fn, _label=label, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*a, **k)
+            torch.cuda.synchronize()
+            acc[_label] = acc.get(_label, 0.0) + time.perf_counter() - t0
+            return out
+
+        setattr(mod, name, timed)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        det.detect_batch(imgs, **KW)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return total, acc
+
+
+def device_busy(det, imgs):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        det.detect_batch(imgs, **KW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us = 0.0
+    kernels = 0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            busy_us += ev.device_time_total
+            kernels += 1
+    return wall, busy_us / 1e6, kernels
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_torch_detect: no CUDA device", file=sys.stderr)
+        return 2
+    import jda_tpu_torch as jt
+
+    model = jt.synthetic_model(
+        T=5, K=540, landmark_n=27, seed=7,
+        drop_profile=jt.realistic_drop_profile(5, 540),
+    )
+    det = jt.Detector(model)
+    for label, (h, w, B, seed) in (("VGA B=16", (480, 640, 16, 3)),
+                                   ("1080p B=4", (1080, 1920, 4, 31))):
+        imgs = [make_image(h, w, seed + i) for i in range(B)]
+        det.detect_batch(imgs, **KW)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        det.detect_batch(imgs, **KW)
+        torch.cuda.synchronize()
+        plain = time.perf_counter() - t0
+        total, acc = phase_times(det, imgs)
+        wall, busy, kernels = device_busy(det, imgs)
+        print(f"{label}: batch {plain * 1e3:.1f} ms unsynchronised, "
+              f"{total * 1e3:.1f} ms with per-phase syncs; counts {det.last_stats['counts']}")
+        for k, v in acc.items():
+            print(f"  {k:32s} {v * 1e3:9.1f} ms  {100 * v / total:5.1f} %")
+        print(f"  other (host glue)                {(total - sum(acc.values())) * 1e3:9.1f} ms")
+        print(f"  profiler: wall {wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms "
+              f"({kernels} kernels), idle share {1 - busy / wall:.3f}")
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

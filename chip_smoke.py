@@ -19,7 +19,23 @@ Phases, each fatal on failure:
      identical boxes, scores within 2e-4, shapes within 2e-3;
   5. a 1080p stream of 4 frames at B=4;
   6. the kernel's time per VGA batch (CUDA events) beside its plain
-     version's and its bound.
+     version's and its bound;
+  7. hold the whole-ladder kernel of one image (`dense0_image`) against its
+     plain version and against `dense0_filter` at B=1 on the full VGA
+     ladder (4 images) and the full 1080p ladder (1 frame): score, alive
+     and nvis bit-equal;
+  8. the non-fused path at full width: Detector.detect under
+     JDA_TPU_FUSED=0 on 4 VGA images and 1 1080p frame, bit-equal to the
+     fused results of phases 3 and 5, one `dense0_image` launch per image;
+  9. a multi-scale model of the same width through Detector.detect
+     (pyramid, prefilter and stage loop of _run_batch) on 2 VGA images:
+     the full ladder bit-equal to the port on the CPU, and against the
+     native C library with the window pinned to 24 px, where every read of
+     the C library stays inside its pyramid: identical boxes, scores within
+     2e-4, shapes within 2e-3;
+ 10. `dense0_image` per VGA image and per 1080p frame (CUDA events) beside
+     its plain version, its bound and the 14 `dense0_filter` launches at
+     B=1 that compute the same.
 
 The last lines are the card (nvidia-smi name and power limit), a
 {"kernels": [...]} JSON line, and {"ok": true, "device": {...}}.  Without a
@@ -100,6 +116,48 @@ def check_kernel(img, tabs, scales, depth):
     return err
 
 
+def same_result(a, b, what):
+    for f in ("bboxes", "scores", "shapes"):
+        if not np.array_equal(getattr(a, f), getattr(b, f)):
+            raise AssertionError(f"{what}: {f} differ ({a.n} vs {b.n} boxes)")
+
+
+def check_image_kernel(img, tabs, scales, depth, label):
+    """`dense0_image` on one image against its plain version and against
+    `dense0_filter` at B=1, scale by scale.  Returns (largest |score|
+    difference, the kernel's outputs)."""
+    import torch
+    from jda_tpu_torch.ops import dense0 as D0
+
+    got = D0.stage0_filter_image(img, tabs, meta=scales, depth=depth)
+    want = D0.stage0_filter_image_reference(img, tabs, meta=scales, depth=depth)
+    batch = D0.stage0_filter_all_scales(img[None], tabs, meta=scales, depth=depth)
+    torch.cuda.synchronize()
+    for name, a, b, c in zip(("score", "alive", "nvis"), got, want, batch):
+        if not torch.equal(a, b):
+            raise AssertionError(f"dense0_image != plain: {name}, {label}")
+        if not torch.equal(a, c[0]):
+            raise AssertionError(f"dense0_image != dense0_filter at B=1: {name}, {label}")
+    log(f"  {label}: {got[0].numel()} windows over {len(scales)} scales bit-equal to "
+        f"plain and to dense0_filter at B=1, alive {int(got[1].sum())}, "
+        f"cart visits {int(got[2].sum(dtype=torch.int64))}")
+    return float((got[0] - want[0]).abs().max()), got
+
+
+def image_bound(H, W, n_scales, n, K, node_n, nvis_sum, depth):
+    """Least time for one `dense0_image` call: (bytes ms, operations ms)."""
+    bytes_moved = (
+        H * W  # the image, read once
+        + n_scales * K * node_n * 16 + K * (node_n + 4) * 4 + n_scales * 16  # tables
+        + n * (4 + 1 + 4)  # score, alive, nvis
+    )
+    # per visited cart: (depth-1) node steps of subtract, compare and two
+    # index ops; add, subtract, divide and compare in the score chain
+    ops = nvis_sum * ((depth - 1) * 4 + 4)
+    return (bytes_moved / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3,
+            bytes_moved, ops)
+
+
 def cuda_ms(fn, reps, groups=5):
     """Median over `groups` of the CUDA-event time of `reps` calls, per call."""
     import torch
@@ -143,8 +201,8 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    _build.build_all(["dense0"])
-    log(f"[1] built dense0 in {time.perf_counter() - t0:.1f} s")
+    _build.build_all(["dense0", "dense0_image"])
+    log(f"[1] built dense0 and dense0_image in {time.perf_counter() - t0:.1f} s")
     for name, text in _build.build_logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
@@ -304,6 +362,157 @@ def main() -> int:
         f"plain {plain_ms:.1f} / {plain_ms2:.1f} ms; bytes {bytes_moved} -> "
         f"{t_bytes:.4f} ms, ops {ops} -> {t_ops:.4f} ms; alive {alive_n}, "
         f"cart visits {nvis_sum}")
+
+    # -- 7. dense0_image against its plain version, full ladders --------------------
+    t0 = time.perf_counter()
+    log("[7] dense0_image vs plain and vs dense0_filter at B=1, full ladders")
+    img_err = 0.0
+    for i in range(4):
+        e, out_vga = check_image_kernel(vga_img[i], vga_tabs, vga_scales, depth, f"VGA image {i}")
+        img_err = max(img_err, e)
+    if out_vga[0].numel() != n_vga:
+        raise AssertionError(f"dense0_image: {out_vga[0].numel()} windows, not {n_vga}")
+    hd_tabs = scale_tables(det, hd_scales, dev)
+    e, out_hd = check_image_kernel(hd_img[0], hd_tabs, hd_scales, depth, "1080p frame 0")
+    img_err = max(img_err, e)
+    if out_hd[0].numel() != n_hd:
+        raise AssertionError(f"dense0_image: {out_hd[0].numel()} windows, not {n_hd}")
+    log(f"[7] done in {time.perf_counter() - t0:.1f} s, max |score err| {img_err}")
+
+    # -- 8. the non-fused path: Detector.detect under JDA_TPU_FUSED=0 ----------------
+    unfused_imgs = vga[:4] + hd[:1]
+    fused_res = list(res[:4]) + list(res_hd[:1])
+    saved_env = os.environ.get("JDA_TPU_FUSED")
+    os.environ["JDA_TPU_FUSED"] = "0"
+    try:
+        for g in (vga[4], hd[1]):  # warm: plans, tables
+            det.detect(g, **BENCH_KW)
+        torch.cuda.synchronize()
+        D0.stage0_filter_image.launches = 0
+        D0.scale_filter.launches = 0
+        t0 = time.perf_counter()
+        unfused_res = [det.detect(g, **BENCH_KW) for g in unfused_imgs[:4]]
+        torch.cuda.synchronize()
+        dt_vga = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        unfused_res.append(det.detect(unfused_imgs[4], **BENCH_KW))
+        torch.cuda.synchronize()
+        dt_hd = time.perf_counter() - t0
+        image_launches = D0.stage0_filter_image.launches
+        stray = D0.scale_filter.launches
+    finally:
+        if saved_env is None:
+            os.environ.pop("JDA_TPU_FUSED", None)
+        else:
+            os.environ["JDA_TPU_FUSED"] = saved_env
+    for i, (a, b) in enumerate(zip(fused_res, unfused_res)):
+        same_result(a, b, f"non-fused detect differs from the fused path, image {i}")
+        if not (np.isfinite(b.scores).all() and np.isfinite(b.shapes).all()):
+            raise AssertionError("non-finite detection output")
+    log(f"[8] non-fused detect: 4 VGA images in {dt_vga:.3f} s = {4 / dt_vga:.2f} img/s, "
+        f"1 1080p frame in {dt_hd:.3f} s = {1 / dt_hd:.2f} FPS; boxes "
+        f"{[r.n for r in unfused_res]} bit-equal to the fused path; dense0_image "
+        f"launches {image_launches} for {len(unfused_imgs)} images, dense0_filter {stray}")
+    if image_launches != len(unfused_imgs) or stray != 0:
+        raise AssertionError(
+            f"non-fused path launched dense0_image {image_launches} times and "
+            f"dense0_filter {stray} times for {len(unfused_imgs)} images"
+        )
+
+    # -- 9. a multi-scale model: pyramid, prefilter, stage loop ----------------------
+    ms_model = jt.synthetic_model(
+        T=5, K=540, landmark_n=27, seed=7, multi_scale=True,
+        drop_profile=jt.realistic_drop_profile(5, 540),
+    )
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ms.model")
+        jt.save_model(ms_model, path, dtype="double")
+        ms_loaded = jt.load_model(path, dtype="double")
+        ms_det = jt.Detector(ms_loaded)
+        ms_cpu = jt.Detector(ms_loaded, device="cpu")
+        if ms_det.single_scale or ms_det._fused_enabled():
+            raise AssertionError("the multi-scale model took the fused path")
+        ndet = native.NativeDetector(path, dtype="double")
+        # the C library's half and quarter patches read past their buffers
+        # near the bottom edge; with the window pinned to 24 px every read
+        # of a window at y <= H - 82 stays inside, and 24 px more keep NMS
+        # from coupling those boxes with the rest
+        pinned = dict(scale=1.25, min_size=24, max_size=24, th=-5.0)
+        safe_y = 480 - 82 - 24
+        n_safe = 0
+        for i in range(2):
+            t0 = time.perf_counter()
+            r = ms_det.detect(vga[i], **BENCH_KW)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            same_result(ms_cpu.detect(vga[i], **BENCH_KW), r,
+                        f"multi-scale detect on the card differs from the CPU, image {i}")
+            rp = ms_det.detect(vga[i], **pinned)
+            nb, nsh, nsc = ndet.detect(vga[i], **pinned)
+            tm, om = rp.bboxes[:, 1] <= safe_y, nb[:, 1] <= safe_y
+            if not np.array_equal(nb[om], rp.bboxes[tm]):
+                raise AssertionError(f"multi-scale image {i}: boxes differ from the C "
+                                     f"library ({om.sum()} vs {tm.sum()})")
+            ds = float(np.abs(nsc[om] - rp.scores[tm]).max()) if om.any() else 0.0
+            dsh = float(np.abs(nsh[om] - rp.shapes[tm]).max()) if om.any() else 0.0
+            if ds > 2e-4 or dsh > 2e-3:
+                raise AssertionError(f"multi-scale image {i}: score diff {ds}, shape diff {dsh}")
+            n_safe += int(om.sum())
+            log(f"[9] multi-scale image {i}: full ladder {r.n} boxes in {dt:.3f} s, bit-equal "
+                f"to the CPU port; win 24: {int(om.sum())} of {len(nb)} boxes comparable, "
+                f"identical to the C library, max |score| diff {ds:.3g}, "
+                f"max |shape| diff {dsh:.3g}")
+        ndet.close()
+        if n_safe == 0:
+            raise AssertionError("multi-scale: no box to compare with the C library")
+
+    # -- 10. dense0_image per image ---------------------------------------------------
+    prep_vga = D0.prepare_image(vga_tabs, meta=vga_scales, depth=depth, H=480, W=640)
+    prep_hd = D0.prepare_image(hd_tabs, meta=hd_scales, depth=depth, H=1080, W=1920)
+    img0, hd0 = vga_img[0], hd_img[0]
+    b1 = []  # the same work as 14 dense0_filter launches at B=1
+    for (win, step, ny, nx), nodes in zip(vga_scales, prep_vga.nodes):
+        outs = (torch.empty((1, ny, nx), dtype=torch.float32, device=dev),
+                torch.empty((1, ny, nx), dtype=torch.bool, device=dev),
+                torch.empty((1, ny, nx), dtype=torch.int32, device=dev))
+        b1.append((nodes, outs, step))
+
+    def image_kernel():
+        D0.launch_image(img0, prep_vga, out_vga)
+
+    def image_wrapper():
+        D0.stage0_filter_image(img0, vga_tabs, meta=vga_scales, depth=depth,
+                               prepared=prep_vga)
+
+    def image_plain():
+        D0.stage0_filter_image_reference(img0, vga_tabs, meta=vga_scales, depth=depth)
+
+    def per_scale_kernels():
+        for nodes, outs, step in b1:
+            D0.launch(img0[None], nodes, prep_vga.tabf, outs, step=step, depth=depth)
+
+    img_plain_ms = cuda_ms(image_plain, reps=1, groups=2)
+    img_ms = cuda_ms(image_kernel, reps=20)
+    b1_ms = cuda_ms(per_scale_kernels, reps=5)
+    img_wrapper_ms = cuda_ms(image_wrapper, reps=20)
+    b1_ms2 = cuda_ms(per_scale_kernels, reps=5)
+    img_ms2 = cuda_ms(image_kernel, reps=20)
+    img_plain_ms2 = cuda_ms(image_plain, reps=1, groups=2)
+    hd_ms = cuda_ms(lambda: D0.launch_image(hd0, prep_hd, out_hd), reps=10)
+    nvis_vga = int(out_vga[2].sum(dtype=torch.int64))
+    nvis_hd = int(out_hd[2].sum(dtype=torch.int64))
+    ib_bytes, ib_ops, ib_nbytes, ib_nops = image_bound(
+        480, 640, len(vga_scales), n_vga, K, node_n, nvis_vga, depth)
+    hb_bytes, hb_ops, _, _ = image_bound(
+        1080, 1920, len(hd_scales), n_hd, K, node_n, nvis_hd, depth)
+    log(f"[10] dense0_image per VGA image (1 launch): {img_ms:.4f} / {img_ms2:.4f} ms kernel, "
+        f"{img_wrapper_ms:.4f} ms through the wrapper, plain {img_plain_ms:.1f} / "
+        f"{img_plain_ms2:.1f} ms, {len(b1)} dense0_filter launches at B=1 {b1_ms:.4f} / "
+        f"{b1_ms2:.4f} ms; bytes {ib_nbytes} -> {ib_bytes:.5f} ms, ops {ib_nops} -> "
+        f"{ib_ops:.5f} ms; cart visits {nvis_vga}, most by one window {int(out_vga[2].max())}")
+    log(f"[10] dense0_image per 1080p frame (1 launch): {hd_ms:.4f} ms, bound "
+        f"{max(hb_bytes, hb_ops):.5f} ms ({'bytes' if hb_bytes >= hb_ops else 'operations'}), "
+        f"cart visits {nvis_hd}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     log(card)
@@ -322,6 +531,24 @@ def main() -> int:
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None,
+    }, {
+        "name": "dense0_image",
+        "route": "cuda",
+        "source": "jda_tpu_torch/csrc/dense0_image.cu",
+        "replaces": "jda_tpu/ops/dense0.py:592",
+        "also_replaces": ["jda_tpu/ops/dense0.py:753"],
+        "launches": image_launches,
+        "launches_per_image": 1,
+        "max_abs_err": img_err,
+        "ms": statistics.median([img_ms, img_ms2]),
+        "wrapper_ms": img_wrapper_ms,
+        "plain_ms": statistics.median([img_plain_ms, img_plain_ms2]),
+        "bound_ms": max(ib_bytes, ib_ops),
+        "bound_by": "bytes" if ib_bytes >= ib_ops else "operations",
+        "library_ms": None,
+        "dense0_filter_b1_ms": statistics.median([b1_ms, b1_ms2]),
+        "ms_1080p": hd_ms,
+        "bound_ms_1080p": max(hb_bytes, hb_ops),
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -7,27 +7,36 @@ reference C API `jdaDetect` (c/jda.c:318-480):
     (the `step` argument is accepted and ignored, as in c/jda.c:333);
   * single-scale models read only the origin image, at coordinates
     truncated toward zero;
-  * the shape starts at the mean shape; stage 0 runs densely over every
-    window (ops/dense0.py), survivors run stages 1..T-1 with compaction
-    (ops/fused.py);
+  * multi-scale models also read the half and quarter levels of the
+    o/h/q pyramid (ops/resize.py) through borrowed-memory patches
+    (window_geometry);
+  * the shape starts at the mean shape; for single-scale models stage 0
+    runs densely over every window (ops/dense0.py);
   * final score threshold, greedy NMS (overlap 0.3), landmark relocation.
 
-This slice covers single-scale models with T > 0 (the fused path).  Entry
-points run on CUDA unless the caller passes device="cpu".
+Two paths.  The fused path (ops/fused.py) serves single-scale models with
+T > 0, a batch of images per call.  The non-fused path serves one image
+per call: multi-scale models, T == 0 models, and any model when the
+environment variable JDA_TPU_FUSED is "0".  Entry points run on CUDA
+unless the caller passes device="cpu".
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+import os
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from jda_tpu_torch.params import CascadeParams
+from jda_tpu_torch.ops import cascade as C
 from jda_tpu_torch.ops import dense0 as D0
 from jda_tpu_torch.ops import fused as F
 from jda_tpu_torch.ops import nms as NMS
+from jda_tpu_torch.ops import resize as R
 
 
 @dataclasses.dataclass
@@ -80,6 +89,38 @@ def enumerate_windows(
     return np.concatenate(xs), np.concatenate(ys), np.concatenate(ws), scales
 
 
+def window_geometry(
+    x: np.ndarray,
+    y: np.ndarray,
+    win: np.ndarray,
+    offsets: np.ndarray,
+    strides: np.ndarray,
+) -> Dict[str, np.ndarray]:
+    """Per-window flat base/stride/patch dims for the three pyramid levels.
+
+    Matches the borrowed-memory patches of c/jda.c:340-354: level o at
+    (x, y); level h at (int(x*r), int(y*r)) with r = 1/sqrt(2) in float32;
+    level q at (x/2, y/2); all three claim width = height = win.
+    """
+    n = x.shape[0]
+    r = np.float32(1.0) / np.float32(math.sqrt(2.0))
+    hx = (x.astype(np.float32) * r).astype(np.int32)
+    hy = (y.astype(np.float32) * r).astype(np.int32)
+    qx = x // 2
+    qy = y // 2
+    base = np.stack(
+        [
+            offsets[0] + y.astype(np.int64) * strides[0] + x,
+            offsets[1] + hy.astype(np.int64) * strides[1] + hx,
+            offsets[2] + qy.astype(np.int64) * strides[2] + qx,
+        ],
+        axis=1,
+    ).astype(np.int32)
+    stride = np.broadcast_to(strides[None, :], (n, 3)).astype(np.int32)
+    pw = np.broadcast_to(win[:, None], (n, 3)).astype(np.int32)
+    return {"base": base, "stride": stride, "pw": pw, "ph": pw.copy()}
+
+
 def _empty(landmark_n: int) -> DetectionResult:
     return DetectionResult(
         0,
@@ -93,15 +134,34 @@ def _empty(landmark_n: int) -> DetectionResult:
 class Detector:
     """Detector over a loaded cascade (API of c/jda.h:62-63).
 
-    Multi-scale models, T == 0 models, `mesh=` and the non-fused branch
-    are not ported yet: they raise NotImplementedError naming the ROADMAP
-    item that brings them.
+    The fused path runs a whole batch in one pass (ops/fused.py).  The
+    non-fused path takes one image per call.  Single-scale models: the
+    dense stage-0 filter over the whole ladder (one `dense0_image` launch),
+    then every survivor through all stages at once (cascade_full).  Other
+    models, per geometry batch (`_run_batch`):
+      1. *prefilter*: a dense result where the caller has one, or else the
+         first `prefilter_carts` carts of stage 0 on every window in
+         slabs; survivors are compacted.  This recovers the reference's
+         early-exit economics (cascador.cpp:188-191) at batch granularity.
+      2. per stage: every cart in chunks, the score chain and the exact
+         regression, compacting survivors between stages.
+    Re-running carts [0, prefilter) on survivors is exact: tree descent
+    depends only on the (unchanged within a stage) shape, and the score
+    chain recomputes the identical float sequence from zero.
+
+    Not ported yet, each raising NotImplementedError that names its ROADMAP
+    item: `mesh=` (multi-GPU detection, A.7) and `_run_batch(with_stp=True)`
+    (the per-stage similarity transform of the C++ path, A.9).
     """
+
+    SLAB = 1 << 16  # windows per prefilter pass (bounds temp memory)
+    CART_CHUNK = 180  # carts per pass (bounds [N, C] temp memory)
 
     def __init__(
         self,
         params: CascadeParams,
         final_th_default: float = 0.0,
+        prefilter_carts: int = 64,
         rounding: bool = False,
         device: Union[str, torch.device, None] = None,
     ):
@@ -111,6 +171,9 @@ class Detector:
                 "available; pass device='cpu' to run the plain PyTorch path"
             )
         self.device = torch.device("cuda" if device is None else device)
+        # rounding=False reproduces the C API's coordinate truncation
+        # (c/jda.c:375-381); rounding=True uses the C++ training semantics
+        # (data.cpp:48-51)
         self.rounding = bool(rounding)
         self.params = params
         self.dev = params.device_tensors(self.device, torch.float32)
@@ -120,6 +183,26 @@ class Detector:
         self.leaf_n = params.leaf_n
         self.final_th_default = final_th_default
         self.single_scale = bool((params.scale == 0).all())
+        self.prefilter_carts = min(prefilter_carts, self.K)
+        self.pre_chunk = (
+            {
+                k: v[0, : self.prefilter_carts]
+                for k, v in self.dev.items()
+                if k not in ("W", "mean_shape")
+            }
+            if self.T > 0
+            else None
+        )
+        # per-stage cart chunks, pre-sliced on the device
+        self.stage_chunks = []
+        for t in range(self.T):
+            sp = C.stage_params(self.dev, t)
+            self.stage_chunks.append(
+                [
+                    {k: v[c0 : c0 + self.CART_CHUNK] for k, v in sp.items()}
+                    for c0 in range(0, self.K, self.CART_CHUNK)
+                ]
+            )
         if self.T > 0:
             # host copies of stage-0 params for the dense filter's tables
             p32 = params.astype(np.float32)
@@ -140,22 +223,13 @@ class Detector:
         self._upload_done: Optional[torch.cuda.Event] = None
         self.last_stats: dict = {}
 
-    def _check_fused(self) -> None:
-        if not self.single_scale:
-            raise NotImplementedError(
-                "multi-scale models are not ported yet (ROADMAP A.9: the "
-                "C++-semantics path with _scale_filter_ms)"
-            )
-        if self.T == 0:
-            raise NotImplementedError(
-                "models with T == 0 take the non-fused detect branch, which "
-                "is not ported yet (ROADMAP A.7, left out)"
-            )
-
-    def _run_batch(self, *args, **kw):
-        raise NotImplementedError(
-            "Detector._run_batch (the non-fused stage loop) is not ported "
-            "yet (ROADMAP A.7, left out)"
+    def _fused_enabled(self) -> bool:
+        """The fused path serves single-scale models with T > 0 unless
+        JDA_TPU_FUSED=0 (read at every call)."""
+        return (
+            self.single_scale
+            and self.T > 0
+            and os.environ.get("JDA_TPU_FUSED", "1") != "0"
         )
 
     # -- plans ---------------------------------------------------------------
@@ -169,7 +243,8 @@ class Detector:
             return plan
         x, y, win, scales = enumerate_windows(Wc, Hc, scale, min_size, max_size_c)
         tabs = []
-        for w_, s_, _, _ in scales:
+        # the dense filter applies to single-scale models with a stage 0
+        for w_, s_, _, _ in scales if self.single_scale and self.T > 0 else ():
             t = D0.node_tables(
                 self._ms32, self._host_stage0, w_, s_, rounding=self.rounding
             )
@@ -246,6 +321,221 @@ class Detector:
             s0_lbf=True,
         )
 
+    # -- non-fused path: one image, host ladder, compaction between stages ---
+
+    def _dense_filter(self, img: torch.Tensor, plan: dict):
+        """Full stage-0 rejection over all scan scales of one [H, W] uint8
+        image (ops/dense0.py): on CUDA one `dense0_image` launch, with the
+        kernel's tables kept in the plan.  Returns (score, alive, nvis) on
+        the device, flat in window enumeration order."""
+        if self.device.type == "cuda" and "image" not in plan:
+            plan["image"] = D0.prepare_image(
+                plan["tabs"], meta=plan["scales"], depth=self.depth,
+                H=plan["Hc"], W=plan["Wc"],
+            )
+        return D0.stage0_filter_image(
+            img, plan["tabs"], meta=plan["scales"], depth=self.depth,
+            prepared=plan.get("image"),
+        )
+
+    def _run_batch(
+        self,
+        flat_img: torch.Tensor,
+        geom: Dict[str, np.ndarray],
+        valid_n: int,
+        rounding: bool = False,
+        dense_result=None,
+        with_stp: bool = False,
+    ) -> Dict[str, np.ndarray]:
+        """Run all stages on one geometry batch, compacting between stages.
+
+        `flat_img` is the stacked pyramid on the detector's device; `geom`
+        is window_geometry's host dict; `dense_result` an optional (score,
+        alive, nvis) of the dense filter, as arrays or tensors.  State
+        stays on the device between stages.  Returns host arrays: score
+        [n], alive [n], shape [n, 2L], nvis [n], in the original window
+        order.  Rejected windows keep the score, shape and nvis they died
+        with; windows that the dense filter or the prefilter rejected
+        have the mean shape.
+        """
+        if with_stp:
+            raise NotImplementedError(
+                "_run_batch(with_stp=True), the per-stage similarity "
+                "transform of the C++-semantics path, is not ported yet "
+                "(ROADMAP A.9)"
+            )
+        dev = self.device
+        n_total = geom["base"].shape[0]
+        L2 = self.params.landmark_dim
+        ms = self.dev["mean_shape"]
+
+        # results in original order
+        out = {
+            "score": torch.full((n_total,), -float("inf"), dtype=torch.float32, device=dev),
+            "alive": torch.zeros(n_total, dtype=torch.bool, device=dev),
+            "shape": torch.zeros((n_total, L2), dtype=torch.float32, device=dev),
+            "nvis": torch.zeros(n_total, dtype=torch.int32, device=dev),
+        }
+
+        def host():
+            return {k: v.cpu().numpy() for k, v in out.items()}
+
+        if valid_n == 0:
+            return host()
+        g = {
+            k: torch.as_tensor(geom[k][:valid_n], device=dev)
+            for k in ("base", "stride", "pw", "ph")
+        }
+        # live index set (into original window order)
+        live_idx = torch.arange(valid_n, device=dev)
+
+        # phase 1: reject the bulk of windows cheaply.  Preferred: the dense
+        # full-stage-0 filter; else the gather prefilter over the first
+        # prefilter_carts carts.
+        if dense_result is not None:
+            score_d, alive_d, nvis_d = (
+                (a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a)))
+                .to(dev)[:valid_n]
+                for a in dense_result
+            )
+            out["score"][:valid_n] = score_d
+            out["nvis"][:valid_n] = nvis_d
+            out["shape"][:valid_n] = ms
+            live_idx = live_idx[alive_d]
+        elif self.pre_chunk is not None and self.prefilter_carts < self.K:
+            keep_parts = []
+            for s0 in range(0, valid_n, self.SLAB):
+                s1 = min(s0 + self.SLAB, valid_n)
+                state = C.init_state(
+                    s1 - s0, ms, g["base"][s0:s1], g["stride"][s0:s1],
+                    g["pw"][s0:s1], g["ph"][s0:s1],
+                    torch.ones(s1 - s0, dtype=torch.bool, device=dev),
+                )
+                state, _ = C.run_cart_chunk(
+                    self.pre_chunk, flat_img, state, depth=self.depth,
+                    rounding=rounding, single_scale=self.single_scale,
+                )
+                out["score"][s0:s1] = state["score"]
+                out["nvis"][s0:s1] = state["nvis"]
+                out["shape"][s0:s1] = ms
+                keep_parts.append(state["alive"])
+            live_idx = live_idx[torch.cat(keep_parts)]
+
+        carried = None  # survivors' shape, score and nvis between stages
+        for t in range(self.T):
+            m = live_idx.shape[0]
+            if m == 0:
+                break
+            state = C.init_state(
+                m, ms, g["base"][live_idx], g["stride"][live_idx],
+                g["pw"][live_idx], g["ph"][live_idx],
+                torch.ones(m, dtype=torch.bool, device=dev),
+            )
+            if carried is not None:
+                state.update(carried)
+            leaves_parts = []
+            for chunk in self.stage_chunks[t]:
+                state, lv = C.run_cart_chunk(
+                    chunk, flat_img, state, depth=self.depth, rounding=rounding,
+                    single_scale=self.single_scale,
+                )
+                leaves_parts.append(lv)
+            state = C.apply_regression(
+                self.dev["W"][t], torch.cat(leaves_parts, dim=1), state,
+                leaf_n=self.leaf_n,
+            )
+            # record rejected lanes' final values; keep survivors live
+            keep = state["alive"]
+            for k in out:
+                out[k][live_idx] = state[k]
+            live_idx = live_idx[keep]
+            carried = {k: state[k][keep] for k in ("shape", "score", "nvis")}
+        return host()
+
+    def _detect_unfused(
+        self, gray, scale, min_size, max_size, th, nms_overlap, batch
+    ) -> DetectionResult:
+        """One image through the host-built pyramid and ladder: the dense
+        filter plus cascade_full on the survivors (single-scale models), or
+        _run_batch (multi-scale and T == 0 models)."""
+        img_h, img_w = gray.shape
+        if self.single_scale:
+            # single-scale models never read the half/quarter levels
+            levels = (gray, np.zeros((1, 1), np.uint8), np.zeros((1, 1), np.uint8))
+        else:
+            levels = R.pyramid_c(gray)
+        flat, offsets, strides = R.stack_pyramid(levels)
+        flat_dev = torch.from_numpy(flat).to(self.device)
+
+        min_size = max(min_size, 24)
+        if max_size <= 0:
+            max_size = min(img_w, img_h)
+        max_size = min(max_size, img_w, img_h)
+        plan = self._plan(img_h, img_w, scale, min_size, max_size)
+        x, y, win, n = plan["x"], plan["y"], plan["win"], plan["n"]
+        L2 = self.params.landmark_dim
+        if n == 0:
+            return _empty(self.params.landmark_n)
+
+        if self.single_scale and self.T > 0:
+            # stage-0 dead windows are done; every survivor runs the full
+            # cascade from the mean shape (cascade_full), a slab at a time.
+            # Only survivors can be accepted, so only they come back.
+            _, alive_d, _ = self._dense_filter(
+                flat_dev[: img_h * img_w].view(img_h, img_w), plan
+            )
+            idx = torch.nonzero(alive_d).reshape(-1).cpu().numpy()
+            if len(idx) == 0:
+                return _empty(self.params.landmark_n)
+            geom = window_geometry(x[idx], y[idx], win[idx], offsets, strides)
+            parts = []
+            for s0 in range(0, len(idx), self.SLAB):
+                m = min(self.SLAB, len(idx) - s0)
+                state = C.init_state(
+                    m,
+                    self.dev["mean_shape"],
+                    *(
+                        torch.as_tensor(geom[k][s0 : s0 + m], device=self.device)
+                        for k in ("base", "stride", "pw", "ph")
+                    ),
+                    torch.ones(m, dtype=torch.bool, device=self.device),
+                )
+                parts.append(C.cascade_full(
+                    self.dev, flat_dev, state, depth=self.depth,
+                    rounding=self.rounding, leaf_n=self.leaf_n, T=self.T,
+                    exact=True, single_scale=True,
+                ))
+            scores, alive, shapes = (
+                torch.cat([p[k] for p in parts]).cpu().numpy()
+                for k in ("score", "alive", "shape")
+            )
+        else:
+            idx = np.arange(n)
+            scores = np.zeros(n, np.float32)
+            alive = np.zeros(n, bool)
+            shapes = np.zeros((n, L2), np.float32)
+            for s0 in range(0, n, batch):
+                s1 = min(s0 + batch, n)
+                geom = window_geometry(x[s0:s1], y[s0:s1], win[s0:s1], offsets, strides)
+                res = self._run_batch(flat_dev, geom, s1 - s0, rounding=self.rounding)
+                scores[s0:s1] = res["score"]
+                alive[s0:s1] = res["alive"]
+                shapes[s0:s1] = res["shape"]
+
+        keep = alive & (scores >= th)  # final threshold (c/jda.c:413-414)
+        cand = idx[keep]
+        bboxes = np.stack([x[cand], y[cand], win[cand]], axis=1).astype(np.int32)
+        picked = NMS.nms_c(bboxes, scores[keep], nms_overlap)
+        bboxes = bboxes[picked]
+        cscores = scores[keep][picked]
+        out = shapes[keep][picked]
+
+        # landmark relocation (c/jda.c:465-474)
+        sz = bboxes[:, 2:3].astype(np.float32)
+        out[:, 0::2] = out[:, 0::2] * sz + bboxes[:, 0:1].astype(np.float32)
+        out[:, 1::2] = out[:, 1::2] * sz + bboxes[:, 1:2].astype(np.float32)
+        return DetectionResult(len(picked), self.params.landmark_n, bboxes, out, cscores)
+
     # -- public API --------------------------------------------------------
 
     def detect(
@@ -257,14 +547,23 @@ class Detector:
         max_size: int = -1,
         th: Optional[float] = None,
         nms_overlap: float = 0.3,
+        batch: int = 1 << 20,
     ) -> DetectionResult:
-        """jdaDetect-compatible detection (c/jda.c:443-480) of one image."""
+        """jdaDetect-compatible detection (c/jda.c:443-480) of one image.
+        `batch` bounds the windows per geometry batch of the non-fused
+        path."""
         if gray.dtype != np.uint8 or gray.ndim != 2:
             raise ValueError("detect: gray must be a 2-D uint8 image")
-        return self.detect_batch(
-            [gray], scale=scale, min_size=min_size, max_size=max_size, th=th,
-            nms_overlap=nms_overlap,
-        )[0]
+        if th is None:
+            th = self.final_th_default
+        if self._fused_enabled():
+            return self.detect_batch(
+                [gray], scale=scale, min_size=min_size, max_size=max_size, th=th,
+                nms_overlap=nms_overlap,
+            )[0]
+        return self._detect_unfused(
+            gray, scale, min_size, max_size, th, nms_overlap, batch
+        )
 
     def detect_batch(
         self,
@@ -282,15 +581,24 @@ class Detector:
         are enumerated once on the canonical grid with per-image validity
         masks (ops/fused.py).  Per-image results equal single-image
         detection, since windows never read outside their own image.
+        Models the fused path does not serve (multi-scale, T == 0, or
+        JDA_TPU_FUSED=0) fall back to per-image detection.
         """
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= (multi-device detection) is not ported yet (ROADMAP "
                 "A.7, left out: multi-GPU)"
             )
-        self._check_fused()
         if th is None:
             th = self.final_th_default
+        if not self._fused_enabled():
+            return [
+                self.detect(
+                    g, scale=scale, min_size=min_size, max_size=max_size, th=th,
+                    nms_overlap=nms_overlap,
+                )
+                for g in grays
+            ]
         if not grays:
             return []
         Hc, Wc, min_size, ms_c = self._canonical(grays, min_size, max_size)
@@ -312,12 +620,15 @@ class Detector:
     ) -> List[DetectionResult]:
         """Throughput-mode detection over many images: chunks of `batch`
         images share one plan; each chunk is uploaded from pinned host
-        memory.  Results identical to detect_batch."""
-        self._check_fused()
+        memory.  Results identical to detect_batch, which also serves the
+        models the fused path does not."""
         if th is None:
             th = self.final_th_default
-        if not grays:
-            return []
+        if not self._fused_enabled() or not grays:
+            return self.detect_batch(
+                grays, scale=scale, min_size=min_size, max_size=max_size, th=th,
+                nms_overlap=nms_overlap,
+            )
         Hc, Wc, min_size, ms_c = self._canonical(grays, min_size, max_size)
         plan = self._plan(Hc, Wc, scale, min_size, ms_c)
         if plan["n"] == 0:

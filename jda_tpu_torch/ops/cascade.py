@@ -39,6 +39,22 @@ def trunc_toward_zero(x: Tensor) -> Tensor:
     return x.to(torch.int32)
 
 
+def take_fill(flat_img: Tensor, idx: Tensor) -> Tensor:
+    """flat_img[idx] as int32, and the int32 minimum where idx lies past
+    the buffer's end.
+
+    The half and quarter patches of a multi-scale model claim win x win
+    pixels of a smaller pyramid level (c/jda.c:347-352), so near the bottom
+    edge their reads run past the end of the stacked pyramid, where the C
+    library reads whatever memory follows.  The JAX package's `jnp.take`
+    yields the int32 minimum there and the pixel difference wraps in int32;
+    this does the same, so that both packages agree on every window.
+    """
+    n = flat_img.shape[0]
+    v = flat_img[idx.clamp(max=n - 1)].to(torch.int32)
+    return torch.where(idx < n, v, torch.iinfo(torch.int32).min)
+
+
 def init_state(
     n: int,
     mean_shape: Tensor,
@@ -112,7 +128,10 @@ def carts_descend(
             y = to_int((py + off[..., 1]) * ph.to(torch.float32))
             x = torch.minimum(torch.clamp(x, min=0), pw - 1)
             y = torch.minimum(torch.clamp(y, min=0), ph - 1)
-            return flat_img[base + y.to(torch.int64) * stride + x].to(torch.int32)
+            idx = base + y.to(torch.int64) * stride + x
+            if single_scale:
+                return flat_img[idx].to(torch.int32)
+            return take_fill(flat_img, idx)
 
         v = pixel("lmk1", "off1") - pixel("lmk2", "off2")
         bit = v > chunk["feat_th"][cart, node]

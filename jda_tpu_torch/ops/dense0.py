@@ -8,19 +8,25 @@ window: a window at grid position (iy, ix) reads img[iy*step + yr,
 ix*step + xr].  The whole stage-0 cascade over a scale is then a dense
 computation with host-side offset tables (`node_tables`).
 
-`scale_filter` is the entry point.  On a CUDA tensor it launches the
-hand-written kernel `dense0_filter` (csrc/dense0.cu); on a CPU tensor it
-runs `scale_filter_reference`, the plain PyTorch version, which follows the
-JAX package's `_scale_filter` (phase planes and shifted crops, full cart
-loop for every window).
+`scale_filter` is the entry point for one scan scale of a batch of images.
+On a CUDA tensor it launches the hand-written kernel `dense0_filter`
+(csrc/dense0.cu); on a CPU tensor it runs `scale_filter_reference`, the
+plain PyTorch version, which follows the JAX package's `_scale_filter`
+(phase planes and shifted crops, full cart loop for every window).
 
-Applicability: single-scale models on the C-API detect path (truncation).
+`stage0_filter_image` is the entry point for the whole window ladder of one
+image (the non-fused detect path): on a CUDA tensor one launch of
+`dense0_image` (csrc/dense0_image.cu) serves every scale; on a CPU tensor
+`stage0_filter_image_reference` runs the plain filter scale by scale.
+
+Applicability: single-scale models on the C-API window ladder.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Sequence, Tuple
+import dataclasses
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -237,57 +243,73 @@ def kernel_nodes(tabi: Tensor, *, step: int, W: int, depth: int) -> Tensor:
     ).contiguous()
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("dense0")
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    # img, B, H, W, nodes, tabf, K, depth, step, ny, nx, score, alive, nvis,
+    # lbf, stream
+    "dense0": ("dense0_filter", [_P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I,
+                                 _P, _P, _P, _P, _P]),
+    # img, W, recs, S, nodes, tabf, K, depth, n, score, alive, nvis, stream
+    "dense0_image": ("dense0_image", [_P, _I, _P, _I, _P, _P, _I, _I, _I,
+                                      _P, _P, _P, _P]),
+}
+
+
+def _lib(name: str = "dense0") -> ctypes.CDLL:
+    lib = _build.load(name)
     if not getattr(lib, "_jda_bound", False):
-        lib.dense0_filter.restype = ctypes.c_int
-        lib.dense0_filter.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p,
-        ]
+        fn = getattr(lib, _ARGTYPES[name][0])
+        fn.restype = ctypes.c_int
+        fn.argtypes = _ARGTYPES[name][1]
         lib._jda_bound = True
     return lib
 
 
-def _scale_filter_cuda(img, tabi, tabf, *, step, ny, nx, depth, emit_lbf):
+def _max_offsets(tabi: Tensor, step: int, node_n: int) -> Tensor:
+    """int32 [2]: the largest row and column offset (yr, xr) that any
+    (cart, node, point) of a packed tabi reads inside its window."""
+    if not tabi.shape[0]:
+        return tabi.new_zeros(2)
+    pts = tabi[:, : 6 * node_n].reshape(-1, node_n, 2, 3)
+    return torch.stack(
+        [
+            (pts[..., 1] * step + pts[..., 0] // step).max(),
+            (pts[..., 2] * step + pts[..., 0] % step).max(),
+        ]
+    )
+
+
+def _check_tables(name: str, tabi: Tensor, tabf: Tensor, depth: int, device) -> None:
     node_n = (1 << (depth - 1)) - 1
-    leaf_n = node_n + 1
-    if not 2 <= depth <= LBF_BITS + 1:
-        raise ValueError(f"dense0_filter: depth {depth} outside [2, {LBF_BITS + 1}]")
-    if img.dtype != torch.uint8 or img.dim() != 3 or not img.is_contiguous():
-        raise ValueError("dense0_filter: img must be a contiguous uint8 [B, H, W]")
     K = tabi.shape[0]
     if (
         tabi.dtype != torch.int32
         or tuple(tabi.shape) != (K, 7 * node_n)
         or not tabi.is_contiguous()
     ):
-        raise ValueError(f"dense0_filter: tabi must be contiguous int32 [K, {7 * node_n}]")
+        raise ValueError(f"{name}: tabi must be contiguous int32 [K, {7 * node_n}]")
     if (
         tabf.dtype != torch.float32
-        or tuple(tabf.shape) != (K, leaf_n + 3)
+        or tuple(tabf.shape) != (K, node_n + 4)
         or not tabf.is_contiguous()
     ):
-        raise ValueError(f"dense0_filter: tabf must be contiguous float32 [K, {leaf_n + 3}]")
-    if tabi.device != img.device or tabf.device != img.device:
-        raise ValueError("dense0_filter: img, tabi and tabf must be on one device")
+        raise ValueError(f"{name}: tabf must be contiguous float32 [K, {node_n + 4}]")
+    if tabi.device != device or tabf.device != device:
+        raise ValueError(f"{name}: img, tabi and tabf must be on one device")
+
+
+def _scale_filter_cuda(img, tabi, tabf, *, step, ny, nx, depth, emit_lbf):
+    node_n = (1 << (depth - 1)) - 1
+    if not 2 <= depth <= LBF_BITS + 1:
+        raise ValueError(f"dense0_filter: depth {depth} outside [2, {LBF_BITS + 1}]")
+    if img.dtype != torch.uint8 or img.dim() != 3 or not img.is_contiguous():
+        raise ValueError("dense0_filter: img must be a contiguous uint8 [B, H, W]")
+    K = tabi.shape[0]
+    _check_tables("dense0_filter", tabi, tabf, depth, img.device)
     B, H, W = img.shape
     nodes = kernel_nodes(tabi, step=step, W=W, depth=depth)
     # every window's reads must stay inside its own image
-    pts = tabi[:, : 6 * node_n].reshape(K, node_n, 2, 3)
-    yr_max, xr_max = (
-        torch.stack(
-            [
-                (pts[..., 1] * step + pts[..., 0] // step).max(),
-                (pts[..., 2] * step + pts[..., 0] % step).max(),
-            ]
-        ).tolist()
-        if K
-        else (0, 0)
-    )
+    yr_max, xr_max = _max_offsets(tabi, step, node_n).tolist()
     if (ny - 1) * step + yr_max >= H or (nx - 1) * step + xr_max >= W:
         raise ValueError("dense0_filter: grid and offsets read outside the image")
     dev = img.device
@@ -381,3 +403,164 @@ def stage0_filter_all_scales(
         for i, o in enumerate(out):
             parts[i].append(o.reshape((B, ny * nx) + o.shape[3:]))
     return tuple(torch.cat(p, dim=1) for p in parts if p)
+
+
+# ---------------------------------------------------------------------------
+# The whole ladder of one image: plain version, kernel wrapper
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ImageTables:
+    """The tables of `dense0_image` for one image geometry and ladder,
+    on the device (prepare_image)."""
+
+    H: int
+    W: int
+    depth: int
+    meta: Tuple[Tuple[int, int, int, int], ...]
+    n: int  # windows in the ladder
+    recs: Tensor  # [S, 4] int32: first window index, nx, step, ny
+    nodes: Tensor  # [S, K, node_n, 4] int32 (kernel_nodes per scale)
+    tabf: Tensor  # [K, leaf_n + 3] float32, shared by every scale
+
+
+def prepare_image(
+    tabs: Sequence[Tuple[Tensor, Tensor]],  # (tabi, tabf) per scan scale
+    *,
+    meta: Sequence[Tuple[int, int, int, int]],  # (win, step, ny, nx) per scale
+    depth: int,
+    H: int,
+    W: int,
+) -> ImageTables:
+    """Check the per-scale tables against an [H, W] image and build the
+    kernel's tables from them.  The check reads the tables back from the
+    device once; callers keep the result with their plan."""
+    name = "dense0_image"
+    meta = tuple(tuple(int(v) for v in m) for m in meta)
+    if not 2 <= depth <= 30:
+        raise ValueError(f"{name}: depth {depth} outside [2, 30]")
+    if len(tabs) != len(meta) or not meta:
+        raise ValueError(f"{name}: one (tabi, tabf) per scan scale, at least one")
+    node_n = (1 << (depth - 1)) - 1
+    device = tabs[0][0].device
+    tabf = tabs[0][1]
+    K = tabf.shape[0]
+    for tabi, tf in tabs:
+        _check_tables(name, tabi, tf, depth, device)
+        if tabi.shape[0] != K:
+            raise ValueError(f"{name}: every scale must have the same K carts")
+    same = all(torch.equal(tf, tabf) for _, tf in tabs[1:])
+    if not same:
+        raise ValueError(f"{name}: tabf must be the same for every scale")
+    # every window's reads must stay inside the image
+    maxes = torch.stack(
+        [_max_offsets(tabi, step, node_n) for (_, step, _, _), (tabi, _) in zip(meta, tabs)]
+    ).tolist()
+    recs, first = [], 0
+    for (win, step, ny, nx), (yr_max, xr_max) in zip(meta, maxes):
+        if ny < 1 or nx < 1 or step < 1:
+            raise ValueError(f"{name}: empty grid or step at win {win}")
+        if (ny - 1) * step + yr_max >= H or (nx - 1) * step + xr_max >= W:
+            raise ValueError(
+                f"{name}: grid and offsets read outside the image at win {win}"
+            )
+        recs.append((first, nx, step, ny))
+        first += ny * nx
+    if first >= 2**31:
+        raise ValueError(f"{name}: {first} windows do not fit an int32 index")
+    nodes = torch.stack(
+        [
+            kernel_nodes(tabi, step=step, W=W, depth=depth)
+            for (_, step, _, _), (tabi, _) in zip(meta, tabs)
+        ]
+    ).contiguous()
+    return ImageTables(
+        H=H, W=W, depth=depth, meta=meta, n=first,
+        recs=torch.tensor(recs, dtype=torch.int32, device=device),
+        nodes=nodes, tabf=tabf,
+    )
+
+
+def stage0_filter_image_reference(
+    img: Tensor,  # [H, W] uint8
+    tabs: Sequence[Tuple[Tensor, Tensor]],
+    *,
+    meta: Sequence[Tuple[int, int, int, int]],
+    depth: int,
+):
+    """Plain PyTorch version of `stage0_filter_image`: the plain filter on
+    img[None], scale by scale, flattened and concatenated in window
+    enumeration order."""
+    if not meta:
+        raise ValueError("dense0_image: one (tabi, tabf) per scan scale, at least one")
+    parts = [[], [], []]
+    for (_, step, ny, nx), (tabi, tabf) in zip(meta, tabs):
+        out = scale_filter_reference(
+            img[None], tabi, tabf, step=step, ny=ny, nx=nx, depth=depth
+        )
+        for i, o in enumerate(out):
+            parts[i].append(o.reshape(-1))
+    return tuple(torch.cat(p) for p in parts)
+
+
+def launch_image(img: Tensor, t: ImageTables, out) -> None:
+    """Launch `dense0_image` on the current stream into the flat outputs
+    `out` = (score, alive, nvis), with inputs already checked by the
+    wrapper.  Counts the launch."""
+    rc = _lib("dense0_image").dense0_image(
+        img.data_ptr(), t.W, t.recs.data_ptr(), t.recs.shape[0],
+        t.nodes.data_ptr(), t.tabf.data_ptr(), t.tabf.shape[0], t.depth, t.n,
+        out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+        torch.cuda.current_stream(img.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"dense0_image: launch failed, cudaError {rc}")
+    stage0_filter_image.launches += 1
+
+
+def stage0_filter_image(
+    img: Tensor,  # [H, W] uint8
+    tabs: Sequence[Tuple[Tensor, Tensor]],  # (tabi, tabf) per scan scale
+    *,
+    meta: Sequence[Tuple[int, int, int, int]],  # (win, step, ny, nx) per scale
+    depth: int,
+    prepared: Optional[ImageTables] = None,
+):
+    """Stage-0 filter of one image over every scan scale of its ladder:
+    flat (score f32, alive bool, nvis i32), each [n], index i being window
+    i of detect.enumerate_windows.  No leaf words.
+
+    On a CUDA tensor this is one launch of the `dense0_image` kernel (built
+    at first use), counted in `stage0_filter_image.launches`; `prepared`
+    takes the tables of `prepare_image` for this geometry, so that a caller
+    who keeps them pays their check once.  On a CPU tensor it runs
+    `stage0_filter_image_reference`.  The two are bit-identical.
+    """
+    if img.dim() != 2:
+        raise ValueError("dense0_image: img must be one [H, W] image")
+    if img.device.type == "cpu":
+        return stage0_filter_image_reference(img, tabs, meta=meta, depth=depth)
+    if img.device.type != "cuda":
+        raise ValueError(f"dense0_image: no kernel for device {img.device}")
+    if img.dtype != torch.uint8 or not img.is_contiguous():
+        raise ValueError("dense0_image: img must be a contiguous uint8 [H, W]")
+    H, W = img.shape
+    if prepared is None:
+        prepared = prepare_image(tabs, meta=meta, depth=depth, H=H, W=W)
+    elif (
+        (prepared.H, prepared.W, prepared.depth) != (H, W, depth)
+        or prepared.meta != tuple(tuple(m) for m in meta)
+        or prepared.nodes.device != img.device
+    ):
+        raise ValueError("dense0_image: prepared tables are of another geometry")
+    dev = img.device
+    out = (
+        torch.empty(prepared.n, dtype=torch.float32, device=dev),
+        torch.empty(prepared.n, dtype=torch.bool, device=dev),
+        torch.empty(prepared.n, dtype=torch.int32, device=dev),
+    )
+    launch_image(img, prepared, out)
+    return out
+
+
+stage0_filter_image.launches = 0

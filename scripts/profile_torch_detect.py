@@ -13,6 +13,12 @@ with the realistic drop profile; scale 1.25, min 24, th -0.5) it prints
   * from torch.profiler over one unsynchronised batch: the device's busy
     time (sum of kernel times), the number of kernels launched and the
     device's idle share of the batch's wall time;
+  * the same two readings for the non-fused path (JDA_TPU_FUSED=0), one
+    image per call: `Detector.detect` of the bench model on one VGA image
+    and one 1080p frame (dense filter of the whole ladder in one
+    `dense0_image` launch, then cascade_full on the survivors), and of a
+    multi-scale model of the same width on one VGA image (pyramid,
+    prefilter and stage loop of `_run_batch`);
   * the card, as nvidia-smi gives its name and power limit.
 """
 
@@ -37,14 +43,18 @@ def make_image(h, w, seed):
     return np.clip(img + noise, 0, 255).astype(np.uint8)
 
 
-def phase_times(det, imgs):
-    """Synchronised host time per instrumented phase of one batch."""
+def phase_times(det, imgs, unfused=False):
+    """Synchronised host time per instrumented phase of one batch (fused)
+    or of one `detect` call per image (non-fused)."""
     import torch
     from jda_tpu_torch.detect import Detector
     from jda_tpu_torch.ops import cascade as C
     from jda_tpu_torch.ops import dense0 as D0
     from jda_tpu_torch.ops import fused as F
+    from jda_tpu_torch.ops import nms as NMS
+    from jda_tpu_torch.ops import resize as R
 
+    DT = sys.modules[Detector.__module__]
     acc = collections.OrderedDict()
     patches = [
         (D0, "stage0_filter_all_scales", "dense stage-0 filter"),
@@ -56,6 +66,16 @@ def phase_times(det, imgs):
         (Detector, "_upload", "upload"),
         (Detector, "_harvest_batch", "harvest + NMS (host)"),
     ]
+    if unfused:
+        patches = [
+            (R, "pyramid_c", "pyramid (host)"),
+            (DT, "window_geometry", "window geometry (host)"),
+            (Detector, "_dense_filter", "dense stage-0 filter (dense0_image)"),
+            (C, "carts_descend", "tree descent"),
+            (C, "score_chain", "score chain"),
+            (C, "apply_regression", "exact regression"),
+            (NMS, "nms_c", "NMS (host)"),
+        ]
     saved = []
     for mod, name, label in patches:
         fn = getattr(mod, name)
@@ -73,7 +93,7 @@ def phase_times(det, imgs):
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        det.detect_batch(imgs, **KW)
+        run(det, imgs, unfused)
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
     finally:
@@ -82,14 +102,20 @@ def phase_times(det, imgs):
     return total, acc
 
 
-def device_busy(det, imgs):
+def run(det, imgs, unfused):
+    if unfused:
+        return [det.detect(g, **KW) for g in imgs]
+    return det.detect_batch(imgs, **KW)
+
+
+def device_busy(det, imgs, unfused=False):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        det.detect_batch(imgs, **KW)
+        run(det, imgs, unfused)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy_us = 0.0
@@ -114,22 +140,34 @@ def main():
         drop_profile=jt.realistic_drop_profile(5, 540),
     )
     det = jt.Detector(model)
-    for label, (h, w, B, seed) in (("VGA B=16", (480, 640, 16, 3)),
-                                   ("1080p B=4", (1080, 1920, 4, 31))):
+    ms_det = jt.Detector(jt.synthetic_model(
+        T=5, K=540, landmark_n=27, seed=7, multi_scale=True,
+        drop_profile=jt.realistic_drop_profile(5, 540),
+    ))
+    cells = (
+        ("VGA B=16", det, (480, 640, 16, 3), False),
+        ("1080p B=4", det, (1080, 1920, 4, 31), False),
+        ("non-fused VGA, 1 image", det, (480, 640, 1, 3), True),
+        ("non-fused 1080p, 1 frame", det, (1080, 1920, 1, 31), True),
+        ("non-fused multi-scale VGA, 1 image", ms_det, (480, 640, 1, 3), True),
+    )
+    for label, d, (h, w, B, seed), unfused in cells:
+        os.environ["JDA_TPU_FUSED"] = "0" if unfused else "1"
         imgs = [make_image(h, w, seed + i) for i in range(B)]
-        det.detect_batch(imgs, **KW)  # warm
+        run(d, imgs, unfused)  # warm
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        det.detect_batch(imgs, **KW)
+        run(d, imgs, unfused)
         torch.cuda.synchronize()
         plain = time.perf_counter() - t0
-        total, acc = phase_times(det, imgs)
-        wall, busy, kernels = device_busy(det, imgs)
-        print(f"{label}: batch {plain * 1e3:.1f} ms unsynchronised, "
-              f"{total * 1e3:.1f} ms with per-phase syncs; counts {det.last_stats['counts']}")
+        total, acc = phase_times(d, imgs, unfused)
+        wall, busy, kernels = device_busy(d, imgs, unfused)
+        print(f"{label}: {plain * 1e3:.1f} ms unsynchronised, "
+              f"{total * 1e3:.1f} ms with per-phase syncs; counts "
+              f"{d.last_stats.get('counts') if not unfused else 'n/a'}")
         for k, v in acc.items():
-            print(f"  {k:32s} {v * 1e3:9.1f} ms  {100 * v / total:5.1f} %")
-        print(f"  other (host glue)                {(total - sum(acc.values())) * 1e3:9.1f} ms")
+            print(f"  {k:36s} {v * 1e3:9.1f} ms  {100 * v / total:5.1f} %")
+        print(f"  {'other (host glue, copies)':36s} {(total - sum(acc.values())) * 1e3:9.1f} ms")
         print(f"  profiler: wall {wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms "
               f"({kernels} kernels), idle share {1 - busy / wall:.3f}")
     print(subprocess.run(

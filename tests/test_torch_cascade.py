@@ -143,3 +143,22 @@ def test_int_conversions_match():
                    (JC.round_half_away, TC.round_half_away)):
         np.testing.assert_array_equal(np.asarray(jf(jnp.asarray(x))),
                                       tf(torch.from_numpy(x)).numpy())
+
+
+def test_take_fill_matches_jnp_take():
+    """Reads past the stacked pyramid's end (the half and quarter patches of
+    a multi-scale model near the bottom edge): the int32 minimum, as
+    jnp.take gives on the JAX package's int32 pixels, and a pixel
+    difference that wraps in int32 the same way."""
+    rng = np.random.default_rng(4)
+    img = rng.integers(0, 256, 500).astype(np.uint8)
+    idx1 = rng.integers(0, 700, (40, 6))
+    idx2 = rng.integers(0, 700, (40, 6))
+    jimg = jnp.asarray(img.astype(np.int32))
+    jv = jnp.take(jimg, jnp.asarray(idx1)) - jnp.take(jimg, jnp.asarray(idx2))
+    timg = torch.from_numpy(img)
+    t1 = TC.take_fill(timg, torch.from_numpy(idx1))
+    tv = t1 - TC.take_fill(timg, torch.from_numpy(idx2))
+    assert (idx1 >= 500).any() and t1.dtype == torch.int32
+    np.testing.assert_array_equal(t1.numpy()[idx1 >= 500], np.iinfo(np.int32).min)
+    np.testing.assert_array_equal(np.asarray(jv), tv.numpy())

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import jda_tpu_torch as jt
+from jda_tpu_torch.detect import enumerate_windows
 from jda_tpu_torch.ops import _build
 from jda_tpu_torch.ops import dense0 as D0
 
@@ -102,3 +103,80 @@ def test_detector_on_card_matches_cpu(cuda, cpu_det):
         np.testing.assert_array_equal(a.bboxes, b.bboxes)
         np.testing.assert_array_equal(a.scores, b.scores)
         np.testing.assert_array_equal(a.shapes, b.shapes)
+
+
+def _ladder(det, H, W, device):
+    x, _, _, scales = enumerate_windows(W, H, 1.25, 24, min(H, W))
+    return len(x), scales, [_tables(det, w, s, device) for w, s, _, _ in scales]
+
+
+def test_image_kernel_matches_plain_and_batch_kernel(cuda, cpu_det):
+    """`dense0_image` on a small ladder: one launch, bit-equal to its plain
+    version and to `dense0_filter` at B=1 concatenated."""
+    H, W = 150, 210
+    n, scales, tabs = _ladder(cpu_det, H, W, cuda)
+    assert len(scales) >= 8
+    img = torch.from_numpy(_img(H, W, 5)).to(cuda)
+    before = D0.stage0_filter_image.launches
+    got = D0.stage0_filter_image(img, tabs, meta=scales, depth=4)
+    torch.cuda.synchronize()
+    assert D0.stage0_filter_image.launches == before + 1
+    want = D0.stage0_filter_image_reference(img, tabs, meta=scales, depth=4)
+    per_scale = D0.stage0_filter_all_scales(img[None], tabs, meta=scales, depth=4)
+    assert 0 < int(want[1].sum()) < n, "degenerate fixture"
+    for a, b, c in zip(got, want, per_scale):
+        assert a.shape == (n,) and a.dtype == b.dtype
+        assert torch.equal(a, b)
+        assert torch.equal(a, c[0])
+    # prepared tables of this geometry are taken as they are, others refused
+    prepared = D0.prepare_image(tabs, meta=scales, depth=4, H=H, W=W)
+    again = D0.stage0_filter_image(img, tabs, meta=scales, depth=4, prepared=prepared)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    with pytest.raises(ValueError, match="another geometry"):
+        D0.stage0_filter_image(img[:-1].contiguous(), tabs, meta=scales, depth=4,
+                               prepared=prepared)
+    with pytest.raises(ValueError, match="uint8"):
+        D0.stage0_filter_image(img.float(), tabs, meta=scales, depth=4)
+
+
+def test_image_wrapper_raises_when_build_missing(cuda, cpu_det, monkeypatch):
+    n, scales, tabs = _ladder(cpu_det, 40, 40, cuda)
+    monkeypatch.setattr(_build, "CSRC", "/nonexistent-csrc")
+    monkeypatch.setattr(_build, "_libs", {})
+    img = torch.zeros((40, 40), dtype=torch.uint8, device=cuda)
+    with pytest.raises(RuntimeError, match="kernel source missing"):
+        D0.stage0_filter_image(img, tabs, meta=scales, depth=4)
+
+
+@pytest.mark.parametrize("rounding", [False, True], ids=["trunc", "round"])
+def test_unfused_detector_on_card_matches_cpu(cuda, cpu_det, monkeypatch, rounding):
+    """JDA_TPU_FUSED=0 on the card: one `dense0_image` launch per image,
+    results bit-equal to the CPU port's and to the card's fused path."""
+    grays = [_img(96, 128, 1), _img(80, 112, 2)]
+    gdet = jt.Detector(cpu_det.params, rounding=rounding)
+    cdet = jt.Detector(cpu_det.params, rounding=rounding, device="cpu")
+    fused = gdet.detect_batch(grays, th=-5.0)
+    monkeypatch.setenv("JDA_TPU_FUSED", "0")
+    before = D0.stage0_filter_image.launches
+    got = gdet.detect_batch(grays, th=-5.0)
+    assert D0.stage0_filter_image.launches == before + len(grays)
+    want = cdet.detect_batch(grays, th=-5.0)
+    assert sum(r.n for r in want) > 0, "degenerate fixture"
+    for a, b, c in zip(want, got, fused):
+        for f in ("bboxes", "scores", "shapes"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+            np.testing.assert_array_equal(getattr(c, f), getattr(b, f))
+
+
+def test_multi_scale_detector_on_card_matches_cpu(cuda):
+    """A multi-scale model (pyramid, prefilter, stage loop of _run_batch)
+    on the card, bit-equal to the CPU port on the full ladder."""
+    m = jt.synthetic_model(T=3, K=24, landmark_n=9, seed=14, multi_scale=True,
+                           reject_rate=0.1)
+    img = _img(96, 128, 15)
+    want = jt.Detector(m, prefilter_carts=8, device="cpu").detect(img, th=-5.0)
+    got = jt.Detector(m, prefilter_carts=8).detect(img, th=-5.0)
+    assert want.n > 0, "degenerate fixture"
+    np.testing.assert_array_equal(want.bboxes, got.bboxes)
+    np.testing.assert_array_equal(want.scores, got.scores)
+    np.testing.assert_array_equal(want.shapes, got.shapes)

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from jda_tpu import params as JP
+from jda_tpu.detect import Detector as JDetector
 from jda_tpu.detect import enumerate_windows as j_enumerate_windows
 from jda_tpu.ops import dense0 as JD
 from jda_tpu_torch.ops import dense0 as TD
@@ -149,6 +150,81 @@ def test_stage0_all_scales_full_ladder(model):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
 
 
+@pytest.mark.parametrize("rounding", [False, True], ids=["trunc", "round"])
+def test_stage0_filter_image_matches_dense_filter(model, rounding):
+    """The whole-ladder filter of one image against the JAX package's
+    Detector._dense_filter, which on the CPU takes its plain route
+    (stage0_filter_all_scales): bit-equal, no tolerance."""
+    m, ms32, host0 = model
+    H, W = 75, 101
+    x, _, _, scales = j_enumerate_windows(W, H, 1.25, 24, min(H, W))
+    assert len(scales) >= 5
+    img = np.random.default_rng(11).integers(0, 256, (H, W)).astype(np.uint8)
+    jout = JDetector(m, rounding=rounding)._dense_filter(img, scales)
+    tabs = []
+    for w_, s_, _, _ in scales:
+        tabi, tabf = TD.pack_tables(
+            TD.node_tables(ms32, host0, w_, s_, rounding=rounding), m.node_n
+        )
+        tabs.append((torch.from_numpy(tabi), torch.from_numpy(tabf)))
+    for fn in (TD.stage0_filter_image, TD.stage0_filter_image_reference):
+        tout = fn(torch.from_numpy(img), tabs, meta=scales, depth=4)
+        assert len(tout) == 3
+        assert 0 < np.asarray(jout[1]).mean() < 1, "degenerate fixture"
+        for name, a, b in zip(("score", "alive", "nvis"), jout, tout):
+            assert a.dtype == b.numpy().dtype and b.shape == (len(x),), name
+            np.testing.assert_array_equal(a, b.numpy(), err_msg=name)
+
+
+def test_image_filter_equals_batch_filter_at_b1(model):
+    """One image through stage0_filter_image equals the batch filter
+    (the fused path's) at B=1, scale by scale."""
+    m, ms32, host0 = model
+    H, W = 64, 90
+    _, _, _, scales = j_enumerate_windows(W, H, 1.25, 24, min(H, W))
+    img = torch.from_numpy(
+        np.random.default_rng(12).integers(0, 256, (H, W)).astype(np.uint8)
+    )
+    tabs = [
+        tuple(map(torch.from_numpy, TD.pack_tables(TD.node_tables(ms32, host0, w_, s_), m.node_n)))
+        for w_, s_, _, _ in scales
+    ]
+    a = TD.stage0_filter_image(img, tabs, meta=scales, depth=4)
+    b = TD.stage0_filter_all_scales(img[None], tabs, meta=scales, depth=4)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v[0])
+
+
+def test_prepare_image_tables(model):
+    """The kernel's tables of one geometry: per-scale records in
+    enumeration order, node offsets as kernel_nodes gives them, one tabf;
+    a grid that reads outside the image is refused."""
+    m, ms32, host0 = model
+    H, W = 64, 90
+    x, _, _, scales = j_enumerate_windows(W, H, 1.25, 24, min(H, W))
+    tabs = [
+        tuple(map(torch.from_numpy, TD.pack_tables(TD.node_tables(ms32, host0, w_, s_), m.node_n)))
+        for w_, s_, _, _ in scales
+    ]
+    t = TD.prepare_image(tabs, meta=scales, depth=4, H=H, W=W)
+    assert t.n == len(x) and (t.H, t.W, t.depth) == (H, W, 4)
+    assert t.recs.dtype == torch.int32 and t.recs.shape == (len(scales), 4)
+    first = 0
+    for rec, (win, step, ny, nx), (tabi, tabf), nodes in zip(
+        t.recs.tolist(), scales, tabs, t.nodes
+    ):
+        assert rec == [first, nx, step, ny]
+        first += ny * nx
+        assert torch.equal(nodes, TD.kernel_nodes(tabi, step=step, W=W, depth=4))
+        assert torch.equal(tabf, t.tabf)
+    assert t.nodes.shape == (len(scales), K, m.node_n, 4) and t.nodes.is_contiguous()
+    with pytest.raises(ValueError, match="outside the image"):
+        TD.prepare_image(tabs, meta=scales, depth=4, H=H - 1, W=W)
+    other = (tabs[1][0], tabs[1][1] + 1)
+    with pytest.raises(ValueError, match="same for every scale"):
+        TD.prepare_image([tabs[0], other], meta=scales[:2], depth=4, H=H, W=W)
+
+
 def test_wrapper_refuses_other_devices(model):
     m, ms32, host0 = model
     tabi, tabf = TD.pack_tables(TD.node_tables(ms32, host0, 24, 2), m.node_n)
@@ -156,3 +232,8 @@ def test_wrapper_refuses_other_devices(model):
     with pytest.raises(ValueError, match="no kernel"):
         TD.scale_filter(img, torch.from_numpy(tabi), torch.from_numpy(tabf),
                         step=2, ny=4, nx=4, depth=4)
+    with pytest.raises(ValueError, match="no kernel"):
+        TD.stage0_filter_image(
+            img[0], [(torch.from_numpy(tabi), torch.from_numpy(tabf))],
+            meta=[(24, 2, 4, 4)], depth=4,
+        )

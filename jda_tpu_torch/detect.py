@@ -136,7 +136,7 @@ class Detector:
 
     The fused path runs a whole batch in one pass (ops/fused.py).  The
     non-fused path takes one image per call.  Single-scale models: the
-    dense stage-0 filter over the whole ladder (one `dense0_image` launch),
+    dense stage-0 filter over the whole ladder (one `dense0_image` call),
     then every survivor through all stages at once (cascade_full).  Other
     models, per geometry batch (`_run_batch`):
       1. *prefilter*: a dense result where the caller has one, or else the
@@ -303,6 +303,20 @@ class Detector:
             self._upload_done.record()
         return imgs, dims.to(self.device, non_blocking=True)
 
+    def _dense_tables(self, plan: dict) -> Optional[D0.ImageTables]:
+        """The kernels' tables of a plan (ops/dense0.prepare_image), checked
+        and built at the plan's first use and kept with it: the fused and
+        the non-fused path take the same set.  None on the CPU, where the
+        plain filter reads the per-scale tables alone."""
+        if self.device.type != "cuda":
+            return None
+        if "image" not in plan:
+            plan["image"] = D0.prepare_image(
+                plan["tabs"], meta=plan["scales"], depth=self.depth,
+                H=plan["Hc"], W=plan["Wc"],
+            )
+        return plan["image"]
+
     def _run(self, plan, grays, B) -> Dict[str, torch.Tensor]:
         imgs, dims = self._upload(grays, B, plan["Hc"], plan["Wc"])
         return F.run_fused(
@@ -319,23 +333,19 @@ class Detector:
             W=plan["Wc"],
             rounding=self.rounding,
             s0_lbf=True,
+            prepared=self._dense_tables(plan),
         )
 
     # -- non-fused path: one image, host ladder, compaction between stages ---
 
     def _dense_filter(self, img: torch.Tensor, plan: dict):
         """Full stage-0 rejection over all scan scales of one [H, W] uint8
-        image (ops/dense0.py): on CUDA one `dense0_image` launch, with the
+        image (ops/dense0.py): on CUDA one `dense0_image` call, with the
         kernel's tables kept in the plan.  Returns (score, alive, nvis) on
         the device, flat in window enumeration order."""
-        if self.device.type == "cuda" and "image" not in plan:
-            plan["image"] = D0.prepare_image(
-                plan["tabs"], meta=plan["scales"], depth=self.depth,
-                H=plan["Hc"], W=plan["Wc"],
-            )
         return D0.stage0_filter_image(
             img, plan["tabs"], meta=plan["scales"], depth=self.depth,
-            prepared=plan.get("image"),
+            prepared=self._dense_tables(plan),
         )
 
     def _run_batch(

@@ -6,8 +6,9 @@ a shared library, loaded with ctypes:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o build/lib<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of its source, so an edited source builds
-anew and a stale library is never loaded.  Builds happen at first use,
+The library name carries a hash of its source and of every header
+(`csrc/*.cuh`) beside it, so an edited source or header builds anew and a
+stale library is never loaded.  Builds happen at first use,
 never at import.  `build_all` starts one nvcc per source, all at once.
 The loaded libraries are the package's only module-level state.
 """
@@ -15,6 +16,7 @@ The loaded libraries are the package's only module-level state.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -55,8 +57,11 @@ def _paths(name: str):
     src = os.path.join(CSRC, name + ".cu")
     if not os.path.exists(src):
         raise RuntimeError(f"kernel source missing: {src}")
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read()).hexdigest()[:12]
+    sha = hashlib.sha1()
+    for path in [src, *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))]:
+        with open(path, "rb") as f:
+            sha.update(f.read())
+    digest = sha.hexdigest()[:12]
     return src, os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 
 

@@ -8,16 +8,20 @@ window: a window at grid position (iy, ix) reads img[iy*step + yr,
 ix*step + xr].  The whole stage-0 cascade over a scale is then a dense
 computation with host-side offset tables (`node_tables`).
 
-`scale_filter` is the entry point for one scan scale of a batch of images.
-On a CUDA tensor it launches the hand-written kernel `dense0_filter`
-(csrc/dense0.cu); on a CPU tensor it runs `scale_filter_reference`, the
-plain PyTorch version, which follows the JAX package's `_scale_filter`
-(phase planes and shifted crops, full cart loop for every window).
-
-`stage0_filter_image` is the entry point for the whole window ladder of one
-image (the non-fused detect path): on a CUDA tensor one launch of
-`dense0_image` (csrc/dense0_image.cu) serves every scale; on a CPU tensor
-`stage0_filter_image_reference` runs the plain filter scale by scale.
+`stage0_filter_all_scales` is the entry point for the whole window ladder of
+a batch of images (the fused detect path), `scale_filter` for one scan scale
+of a batch, `stage0_filter_image` for the whole ladder of one image (the
+non-fused detect path).  On a CUDA tensor each launches the hand-written
+kernels: `dense0_filter` (csrc/dense0.cu) for the two batch entries,
+`dense0_image` (csrc/dense0_image.cu) for one image.  Both are the walk of
+csrc/dense0_walk.cuh, two launches per call: a head phase (one thread per
+window, the first HEAD_CARTS carts, tables in shared memory) and a survivor
+phase (one warp per window still alive, 32 carts per round).  The kernels'
+tables (`prepare_image`) depend on the image geometry and the ladder only;
+callers keep them with their plan.  On a CPU tensor each entry runs its
+plain PyTorch version: `scale_filter_reference`, which follows the JAX
+package's `_scale_filter` (phase planes and shifted crops, full cart loop
+for every window), scale by scale.
 
 Applicability: single-scale models on the C-API window ladder.
 """
@@ -244,15 +248,24 @@ def kernel_nodes(tabi: Tensor, *, step: int, W: int, depth: int) -> Tensor:
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_IP = ctypes.POINTER(ctypes.c_int)
 _ARGTYPES = {
-    # img, B, H, W, nodes, tabf, K, depth, step, ny, nx, score, alive, nvis,
-    # lbf, stream
-    "dense0": ("dense0_filter", [_P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I,
-                                 _P, _P, _P, _P, _P]),
-    # img, W, recs, S, nodes, tabf, K, depth, n, score, alive, nvis, stream
-    "dense0_image": ("dense0_image", [_P, _I, _P, _I, _P, _P, _I, _I, _I,
-                                      _P, _P, _P, _P]),
+    # img, B, H, W, recs, recs_host, S, nodes, tabf, K, depth, n, head, score,
+    # alive, nvis, lbf, queue, counters, phases, stream, launched
+    "dense0": ("dense0_filter", [_P, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _I,
+                                 _I, _P, _P, _P, _P, _P, _P, _I, _P, _IP]),
+    # img, H, W, recs, recs_host, S, nodes, tabf, K, depth, n, head, score,
+    # alive, nvis, queue, counters, phases, stream, launched
+    "dense0_image": ("dense0_image", [_P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _I,
+                                      _I, _P, _P, _P, _P, _P, _I, _P, _IP]),
 }
+
+# Carts of the kernels' head phase (one thread per window, tables in shared
+# memory); windows still alive after it go one to a warp.  32 is the measured
+# optimum on an H100 (chip_smoke.py phases 6 and 10 time 8, 16, 32 and 64);
+# only `launch` and `launch_image` take another.
+HEAD_CARTS = 32
+PHASE_HEAD, PHASE_SURVIVORS = 1, 2
 
 
 def _lib(name: str = "dense0") -> ctypes.CDLL:
@@ -298,121 +311,11 @@ def _check_tables(name: str, tabi: Tensor, tabf: Tensor, depth: int, device) -> 
         raise ValueError(f"{name}: img, tabi and tabf must be on one device")
 
 
-def _scale_filter_cuda(img, tabi, tabf, *, step, ny, nx, depth, emit_lbf):
-    node_n = (1 << (depth - 1)) - 1
-    if not 2 <= depth <= LBF_BITS + 1:
-        raise ValueError(f"dense0_filter: depth {depth} outside [2, {LBF_BITS + 1}]")
-    if img.dtype != torch.uint8 or img.dim() != 3 or not img.is_contiguous():
-        raise ValueError("dense0_filter: img must be a contiguous uint8 [B, H, W]")
-    K = tabi.shape[0]
-    _check_tables("dense0_filter", tabi, tabf, depth, img.device)
-    B, H, W = img.shape
-    nodes = kernel_nodes(tabi, step=step, W=W, depth=depth)
-    # every window's reads must stay inside its own image
-    yr_max, xr_max = _max_offsets(tabi, step, node_n).tolist()
-    if (ny - 1) * step + yr_max >= H or (nx - 1) * step + xr_max >= W:
-        raise ValueError("dense0_filter: grid and offsets read outside the image")
-    dev = img.device
-    out = (
-        torch.empty((B, ny, nx), dtype=torch.float32, device=dev),
-        torch.empty((B, ny, nx), dtype=torch.bool, device=dev),
-        torch.empty((B, ny, nx), dtype=torch.int32, device=dev),
-    )
-    if emit_lbf:
-        out += (torch.empty((B, ny, nx, lbf_words(K)), dtype=torch.int32, device=dev),)
-    launch(img, nodes, tabf, out, step=step, depth=depth)
-    return out
-
-
-def launch(img: Tensor, nodes: Tensor, tabf: Tensor, out, *, step: int, depth: int) -> None:
-    """Launch `dense0_filter` on the current stream into the outputs `out`
-    = (score, alive, nvis[, lbf]), with inputs already checked by the
-    wrapper (`nodes` from kernel_nodes).  Counts the launch."""
-    B, H, W = img.shape
-    _, ny, nx = out[0].shape
-    rc = _lib().dense0_filter(
-        img.data_ptr(), B, H, W, nodes.data_ptr(), tabf.data_ptr(),
-        tabf.shape[0], depth, step, ny, nx, out[0].data_ptr(),
-        out[1].data_ptr(), out[2].data_ptr(),
-        out[3].data_ptr() if len(out) > 3 else None,
-        torch.cuda.current_stream(img.device).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"dense0_filter: launch failed, cudaError {rc}")
-    scale_filter.launches += 1
-
-
-def scale_filter(
-    img: Tensor,  # [B, H, W] uint8
-    tabi: Tensor,  # [K, 7*node_n] int32 (pack_tables)
-    tabf: Tensor,  # [K, leaf_n + 3] float32
-    *,
-    step: int,
-    ny: int,
-    nx: int,
-    depth: int,
-    emit_lbf: bool = False,
-):
-    """Stage-0 filter of one scan scale: (score, alive, nvis) [B, ny, nx],
-    and with emit_lbf the packed leaf words [B, ny, nx, lbf_words(K)].
-
-    On CUDA tensors this launches the `dense0_filter` kernel (built at first
-    use) and counts the launch in `scale_filter.launches`; on CPU tensors it
-    runs `scale_filter_reference`.  Score, alive and nvis are bit-identical
-    between the two.  The kernel stops a window at the cart that rejects
-    it, so its LBF words are defined only where alive is true.
-    """
-    if img.device.type == "cpu":
-        return scale_filter_reference(
-            img, tabi, tabf, step=step, ny=ny, nx=nx, depth=depth,
-            emit_lbf=emit_lbf,
-        )
-    if img.device.type != "cuda":
-        raise ValueError(f"dense0_filter: no kernel for device {img.device}")
-    return _scale_filter_cuda(
-        img, tabi, tabf, step=step, ny=ny, nx=nx, depth=depth, emit_lbf=emit_lbf
-    )
-
-
-scale_filter.launches = 0
-
-
-def stage0_filter_all_scales(
-    img: Tensor,  # [B, H, W] uint8
-    tabs: Sequence[Tuple[Tensor, Tensor]],  # (tabi, tabf) per scan scale
-    *,
-    meta: Sequence[Tuple[int, int, int, int]],  # (win, step, ny, nx)
-    depth: int,
-    emit_lbf: bool = False,
-):
-    """Full stage-0 over every scan scale.
-
-    Outputs are flattened per scale and concatenated in the reference's
-    window enumeration order (win outer, y middle, x inner — c/jda.c:331-339),
-    so index i is window i of detect.enumerate_windows.  Returns
-    (score [B, n], alive [B, n], nvis [B, n]) and, with emit_lbf, packed
-    stage-0 leaf words [B, n, lbf_words(K)].
-    """
-    B = img.shape[0]
-    parts = [[], [], [], []]
-    for (_, step, ny, nx), (tabi, tabf) in zip(meta, tabs):
-        out = scale_filter(
-            img, tabi, tabf, step=step, ny=ny, nx=nx, depth=depth,
-            emit_lbf=emit_lbf,
-        )
-        for i, o in enumerate(out):
-            parts[i].append(o.reshape((B, ny * nx) + o.shape[3:]))
-    return tuple(torch.cat(p, dim=1) for p in parts if p)
-
-
-# ---------------------------------------------------------------------------
-# The whole ladder of one image: plain version, kernel wrapper
-# ---------------------------------------------------------------------------
-
 @dataclasses.dataclass(frozen=True)
 class ImageTables:
-    """The tables of `dense0_image` for one image geometry and ladder,
-    on the device (prepare_image)."""
+    """The kernels' tables for one image geometry [H, W] and window ladder
+    (prepare_image), on the device.  They do not depend on the batch size:
+    `dense0_filter` and `dense0_image` take the same set."""
 
     H: int
     W: int
@@ -420,6 +323,7 @@ class ImageTables:
     meta: Tuple[Tuple[int, int, int, int], ...]
     n: int  # windows in the ladder
     recs: Tensor  # [S, 4] int32: first window index, nx, step, ny
+    recs_host: np.ndarray  # the same on the host, for the launch's grid
     nodes: Tensor  # [S, K, node_n, 4] int32 (kernel_nodes per scale)
     tabf: Tensor  # [K, leaf_n + 3] float32, shared by every scale
 
@@ -431,18 +335,22 @@ def prepare_image(
     depth: int,
     H: int,
     W: int,
+    device=None,
+    name: str = "dense0_image",
 ) -> ImageTables:
     """Check the per-scale tables against an [H, W] image and build the
-    kernel's tables from them.  The check reads the tables back from the
-    device once; callers keep the result with their plan."""
-    name = "dense0_image"
+    kernels' tables from them.  The check reads the tables back from the
+    device once; callers keep the result with their plan.  `device` is the
+    images' device where the caller has it (default: the tables').  Both
+    kernels take trees of depth 2 to 5: a leaf index must fit the 4 bits of
+    a packed leaf word, and the head's tables its shared memory."""
     meta = tuple(tuple(int(v) for v in m) for m in meta)
-    if not 2 <= depth <= 30:
-        raise ValueError(f"{name}: depth {depth} outside [2, 30]")
+    if not 2 <= depth <= LBF_BITS + 1:
+        raise ValueError(f"{name}: depth {depth} outside [2, {LBF_BITS + 1}]")
     if len(tabs) != len(meta) or not meta:
         raise ValueError(f"{name}: one (tabi, tabf) per scan scale, at least one")
     node_n = (1 << (depth - 1)) - 1
-    device = tabs[0][0].device
+    device = tabs[0][0].device if device is None else device
     tabf = tabs[0][1]
     K = tabf.shape[0]
     for tabi, tf in tabs:
@@ -466,20 +374,192 @@ def prepare_image(
             )
         recs.append((first, nx, step, ny))
         first += ny * nx
-    if first >= 2**31:
-        raise ValueError(f"{name}: {first} windows do not fit an int32 index")
     nodes = torch.stack(
         [
             kernel_nodes(tabi, step=step, W=W, depth=depth)
             for (_, step, _, _), (tabi, _) in zip(meta, tabs)
         ]
     ).contiguous()
+    recs_host = np.ascontiguousarray(recs, dtype=np.int32)
     return ImageTables(
         H=H, W=W, depth=depth, meta=meta, n=first,
-        recs=torch.tensor(recs, dtype=torch.int32, device=device),
+        recs=torch.as_tensor(recs_host, device=device), recs_host=recs_host,
         nodes=nodes, tabf=tabf,
     )
 
+
+# ---------------------------------------------------------------------------
+# Kernel launches
+# ---------------------------------------------------------------------------
+
+def _check_images(name: str, img: Tensor, t: ImageTables) -> None:
+    """The (uint8, contiguous) images against their prepared tables."""
+    if tuple(img.shape[-2:]) != (t.H, t.W) or t.nodes.device != img.device:
+        raise ValueError(f"{name}: prepared tables are of another geometry")
+    if img.numel() // (t.H * t.W) * t.n >= 2**31:
+        raise ValueError(f"{name}: the batch's windows do not fit an int32 index")
+
+
+def walk_scratch(B: int, t: ImageTables) -> Tuple[Tensor, Tensor]:
+    """The kernels' scratch for a batch of B images: the survivor queue
+    (one int32 per window, written up to the queue's length only) and the
+    two counters (queue length, next ticket)."""
+    dev = t.nodes.device
+    return (
+        torch.empty(B * t.n, dtype=torch.int32, device=dev),
+        torch.zeros(2, dtype=torch.int32, device=dev),
+    )
+
+
+def launch(
+    img: Tensor,  # [B, H, W] uint8
+    t: ImageTables,
+    out,  # (score, alive, nvis[, lbf]) of B * t.n windows
+    *,
+    head_carts: int = HEAD_CARTS,
+    phases: int = PHASE_HEAD | PHASE_SURVIVORS,
+    scratch: Optional[Tuple[Tensor, Tensor]] = None,
+) -> Tuple[Tensor, Tensor]:
+    """Launch `dense0_filter` on the current stream into the outputs `out`,
+    with inputs already checked by the wrapper: the head phase, the survivor
+    phase or (default) both, two kernels.  `scratch` is a `walk_scratch` to
+    reuse; its counters are zeroed here before a head phase.  With the
+    survivor phase alone the caller provides the queue, the counters
+    (queue length, 0) and the head's state in `out`.  Counts the kernels
+    launched and returns the scratch, whose first counter is the queue's
+    length once the head has run."""
+    B = img.shape[0]
+    if scratch is None:
+        scratch = walk_scratch(B, t)
+    elif phases & PHASE_HEAD:
+        scratch[1].zero_()
+    launched = ctypes.c_int(0)
+    rc = _lib().dense0_filter(
+        img.data_ptr(), B, t.H, t.W, t.recs.data_ptr(), t.recs_host.ctypes.data,
+        t.recs_host.shape[0], t.nodes.data_ptr(), t.tabf.data_ptr(),
+        t.tabf.shape[0], t.depth, t.n, head_carts, out[0].data_ptr(),
+        out[1].data_ptr(), out[2].data_ptr(),
+        out[3].data_ptr() if len(out) > 3 else None,
+        scratch[0].data_ptr(), scratch[1].data_ptr(), phases,
+        torch.cuda.current_stream(img.device).cuda_stream, ctypes.byref(launched),
+    )
+    if rc != 0:
+        raise RuntimeError(f"dense0_filter: launch failed, cudaError {rc}")
+    scale_filter.launches += launched.value
+    return scratch
+
+
+def _filter_cuda(img, t: ImageTables, shape, emit_lbf: bool):
+    """Allocate the outputs of a batch (`shape` per image) and launch."""
+    B, dev = img.shape[0], img.device
+    out = (
+        torch.empty((B,) + shape, dtype=torch.float32, device=dev),
+        torch.empty((B,) + shape, dtype=torch.bool, device=dev),
+        torch.empty((B,) + shape, dtype=torch.int32, device=dev),
+    )
+    if emit_lbf:
+        # rows of windows that do not stay alive are never written
+        nw = lbf_words(t.tabf.shape[0])
+        out += (torch.empty((B,) + shape + (nw,), dtype=torch.int32, device=dev),)
+    launch(img, t, out)
+    return out
+
+
+def scale_filter(
+    img: Tensor,  # [B, H, W] uint8
+    tabi: Tensor,  # [K, 7*node_n] int32 (pack_tables)
+    tabf: Tensor,  # [K, leaf_n + 3] float32
+    *,
+    step: int,
+    ny: int,
+    nx: int,
+    depth: int,
+    emit_lbf: bool = False,
+):
+    """Stage-0 filter of one scan scale: (score, alive, nvis) [B, ny, nx],
+    and with emit_lbf the packed leaf words [B, ny, nx, lbf_words(K)].
+
+    On CUDA tensors this launches the `dense0_filter` kernels (built at first
+    use) on a ladder of this one scale, and counts them in
+    `scale_filter.launches`; the tables are checked and prepared at every
+    call, which reads them back once.  On CPU tensors it runs
+    `scale_filter_reference`.  Score, alive and nvis are bit-identical
+    between the two.  The kernel stops a window at the cart that rejects
+    it, so its LBF words are defined only where alive is true.
+    """
+    if img.device.type == "cpu":
+        return scale_filter_reference(
+            img, tabi, tabf, step=step, ny=ny, nx=nx, depth=depth,
+            emit_lbf=emit_lbf,
+        )
+    if img.device.type != "cuda":
+        raise ValueError(f"dense0_filter: no kernel for device {img.device}")
+    if img.dtype != torch.uint8 or img.dim() != 3 or not img.is_contiguous():
+        raise ValueError("dense0_filter: img must be a contiguous uint8 [B, H, W]")
+    t = prepare_image(
+        [(tabi, tabf)], meta=[(0, step, ny, nx)], depth=depth, H=img.shape[1],
+        W=img.shape[2], device=img.device, name="dense0_filter",
+    )
+    _check_images("dense0_filter", img, t)
+    return _filter_cuda(img, t, (ny, nx), emit_lbf)
+
+
+scale_filter.launches = 0
+
+
+def stage0_filter_all_scales(
+    img: Tensor,  # [B, H, W] uint8
+    tabs: Sequence[Tuple[Tensor, Tensor]],  # (tabi, tabf) per scan scale
+    *,
+    meta: Sequence[Tuple[int, int, int, int]],  # (win, step, ny, nx)
+    depth: int,
+    emit_lbf: bool = False,
+    prepared: Optional[ImageTables] = None,
+):
+    """Full stage-0 over every scan scale of a batch.
+
+    Outputs are flat in the reference's window enumeration order (win outer,
+    y middle, x inner — c/jda.c:331-339), so index i is window i of
+    detect.enumerate_windows.  Returns (score [B, n], alive [B, n], nvis
+    [B, n]) and, with emit_lbf, packed stage-0 leaf words
+    [B, n, lbf_words(K)], defined where alive is true.
+
+    On CUDA tensors the whole ladder is one call of `dense0_filter` (two
+    kernels, counted in `scale_filter.launches`) that writes the flat
+    outputs; `prepared` takes the tables of `prepare_image` for this
+    geometry, so that a caller who keeps them with its plan pays their
+    check once and a call does not synchronise.  On CPU tensors the plain
+    filter runs scale by scale.
+    """
+    if img.device.type == "cpu":
+        B = img.shape[0]
+        parts = [[], [], [], []]
+        for (_, step, ny, nx), (tabi, tabf) in zip(meta, tabs):
+            out = scale_filter_reference(
+                img, tabi, tabf, step=step, ny=ny, nx=nx, depth=depth,
+                emit_lbf=emit_lbf,
+            )
+            for i, o in enumerate(out):
+                parts[i].append(o.reshape((B, ny * nx) + o.shape[3:]))
+        return tuple(torch.cat(p, dim=1) for p in parts if p)
+    if img.device.type != "cuda":
+        raise ValueError(f"dense0_filter: no kernel for device {img.device}")
+    if img.dtype != torch.uint8 or img.dim() != 3 or not img.is_contiguous():
+        raise ValueError("dense0_filter: img must be a contiguous uint8 [B, H, W]")
+    if prepared is None:
+        prepared = prepare_image(
+            tabs, meta=meta, depth=depth, H=img.shape[1], W=img.shape[2],
+            device=img.device, name="dense0_filter",
+        )
+    elif prepared.depth != depth or prepared.meta != tuple(tuple(m) for m in meta):
+        raise ValueError("dense0_filter: prepared tables are of another geometry")
+    _check_images("dense0_filter", img, prepared)
+    return _filter_cuda(img, prepared, (prepared.n,), emit_lbf)
+
+
+# ---------------------------------------------------------------------------
+# The whole ladder of one image: plain version, kernel wrapper
+# ---------------------------------------------------------------------------
 
 def stage0_filter_image_reference(
     img: Tensor,  # [H, W] uint8
@@ -503,19 +583,38 @@ def stage0_filter_image_reference(
     return tuple(torch.cat(p) for p in parts)
 
 
-def launch_image(img: Tensor, t: ImageTables, out) -> None:
+def launch_image(
+    img: Tensor,
+    t: ImageTables,
+    out,
+    *,
+    head_carts: int = HEAD_CARTS,
+    phases: int = PHASE_HEAD | PHASE_SURVIVORS,
+    scratch: Optional[Tuple[Tensor, Tensor]] = None,
+) -> Tuple[Tensor, Tensor]:
     """Launch `dense0_image` on the current stream into the flat outputs
     `out` = (score, alive, nvis), with inputs already checked by the
-    wrapper.  Counts the launch."""
+    wrapper: both kernels (default) or one phase, as `launch` does for
+    `dense0_filter`.  `scratch` is a `walk_scratch` of one image to reuse;
+    its counters are zeroed here before a head phase.  Counts the kernels
+    launched and returns the scratch."""
+    if scratch is None:
+        scratch = walk_scratch(1, t)
+    elif phases & PHASE_HEAD:
+        scratch[1].zero_()
+    launched = ctypes.c_int(0)
     rc = _lib("dense0_image").dense0_image(
-        img.data_ptr(), t.W, t.recs.data_ptr(), t.recs.shape[0],
-        t.nodes.data_ptr(), t.tabf.data_ptr(), t.tabf.shape[0], t.depth, t.n,
-        out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-        torch.cuda.current_stream(img.device).cuda_stream,
+        img.data_ptr(), t.H, t.W, t.recs.data_ptr(), t.recs_host.ctypes.data,
+        t.recs_host.shape[0], t.nodes.data_ptr(), t.tabf.data_ptr(),
+        t.tabf.shape[0], t.depth, t.n, head_carts, out[0].data_ptr(),
+        out[1].data_ptr(), out[2].data_ptr(), scratch[0].data_ptr(),
+        scratch[1].data_ptr(), phases,
+        torch.cuda.current_stream(img.device).cuda_stream, ctypes.byref(launched),
     )
     if rc != 0:
         raise RuntimeError(f"dense0_image: launch failed, cudaError {rc}")
-    stage0_filter_image.launches += 1
+    stage0_filter_image.launches += launched.value
+    return scratch
 
 
 def stage0_filter_image(
@@ -530,10 +629,11 @@ def stage0_filter_image(
     flat (score f32, alive bool, nvis i32), each [n], index i being window
     i of detect.enumerate_windows.  No leaf words.
 
-    On a CUDA tensor this is one launch of the `dense0_image` kernel (built
-    at first use), counted in `stage0_filter_image.launches`; `prepared`
-    takes the tables of `prepare_image` for this geometry, so that a caller
-    who keeps them pays their check once.  On a CPU tensor it runs
+    On a CUDA tensor this is one call of `dense0_image` (built at first use;
+    two kernels, the head and the survivor phase, counted in
+    `stage0_filter_image.launches`); `prepared` takes the tables of
+    `prepare_image` for this geometry, so that a caller who keeps them pays
+    their check once.  On a CPU tensor it runs
     `stage0_filter_image_reference`.  The two are bit-identical.
     """
     if img.dim() != 2:
@@ -546,13 +646,12 @@ def stage0_filter_image(
         raise ValueError("dense0_image: img must be a contiguous uint8 [H, W]")
     H, W = img.shape
     if prepared is None:
-        prepared = prepare_image(tabs, meta=meta, depth=depth, H=H, W=W)
-    elif (
-        (prepared.H, prepared.W, prepared.depth) != (H, W, depth)
-        or prepared.meta != tuple(tuple(m) for m in meta)
-        or prepared.nodes.device != img.device
-    ):
+        prepared = prepare_image(
+            tabs, meta=meta, depth=depth, H=H, W=W, device=img.device
+        )
+    elif prepared.depth != depth or prepared.meta != tuple(tuple(m) for m in meta):
         raise ValueError("dense0_image: prepared tables are of another geometry")
+    _check_images("dense0_image", img, prepared)
     dev = img.device
     out = (
         torch.empty(prepared.n, dtype=torch.float32, device=dev),

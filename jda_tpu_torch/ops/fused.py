@@ -18,7 +18,7 @@ the JAX package's, so results are bit-identical.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -62,8 +62,11 @@ def run_fused(
     W: int,
     rounding: bool = False,
     s0_lbf: bool = True,
+    prepared: Optional[D0.ImageTables] = None,
 ) -> Dict[str, Tensor]:
-    """Run the cascade over one batch.  Returns
+    """Run the cascade over one batch.  `prepared` takes the dense filter's
+    tables of this geometry (D0.prepare_image), which the caller keeps with
+    its plan.  Returns
 
       sel        [m] flat window id (b*n + w) of each final lane
       score, shape, alive, nvis   per final lane
@@ -76,7 +79,7 @@ def run_fused(
 
     # -- 1. dense stage-0 over all scales ------------------------------------
     dense = D0.stage0_filter_all_scales(
-        imgs, tabs, meta=meta, depth=depth, emit_lbf=s0_lbf
+        imgs, tabs, meta=meta, depth=depth, emit_lbf=s0_lbf, prepared=prepared
     )
     score_d, alive_d, nvis_d = dense[:3]
 

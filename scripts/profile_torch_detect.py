@@ -12,11 +12,13 @@ with the realistic drop profile; scale 1.25, min 24, th -0.5) it prints
     so the phases add up to a slower batch than the unsynchronised one);
   * from torch.profiler over one unsynchronised batch: the device's busy
     time (sum of kernel times), the number of kernels launched and the
-    device's idle share of the batch's wall time;
+    device's idle share of the batch's wall time; beside it the launches
+    of the hand-written stage-0 kernels in that batch (`dense0_filter`,
+    `dense0_image`: a head and a survivor kernel per call);
   * the same two readings for the non-fused path (JDA_TPU_FUSED=0), one
     image per call: `Detector.detect` of the bench model on one VGA image
     and one 1080p frame (dense filter of the whole ladder in one
-    `dense0_image` launch, then cascade_full on the survivors), and of a
+    `dense0_image` call, then cascade_full on the survivors), and of a
     multi-scale model of the same width on one VGA image (pyramid,
     prefilter and stage loop of `_run_batch`);
   * the card, as nvidia-smi gives its name and power limit.
@@ -112,6 +114,9 @@ def device_busy(det, imgs, unfused=False):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from jda_tpu_torch.ops import dense0 as D0
+
+    before = D0.scale_filter.launches + D0.stage0_filter_image.launches
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -124,7 +129,8 @@ def device_busy(det, imgs, unfused=False):
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             busy_us += ev.device_time_total
             kernels += 1
-    return wall, busy_us / 1e6, kernels
+    dense = D0.scale_filter.launches + D0.stage0_filter_image.launches - before
+    return wall, busy_us / 1e6, kernels, dense
 
 
 def main():
@@ -161,7 +167,7 @@ def main():
         torch.cuda.synchronize()
         plain = time.perf_counter() - t0
         total, acc = phase_times(d, imgs, unfused)
-        wall, busy, kernels = device_busy(d, imgs, unfused)
+        wall, busy, kernels, dense = device_busy(d, imgs, unfused)
         print(f"{label}: {plain * 1e3:.1f} ms unsynchronised, "
               f"{total * 1e3:.1f} ms with per-phase syncs; counts "
               f"{d.last_stats.get('counts') if not unfused else 'n/a'}")
@@ -169,7 +175,8 @@ def main():
             print(f"  {k:36s} {v * 1e3:9.1f} ms  {100 * v / total:5.1f} %")
         print(f"  {'other (host glue, copies)':36s} {(total - sum(acc.values())) * 1e3:9.1f} ms")
         print(f"  profiler: wall {wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms "
-              f"({kernels} kernels), idle share {1 - busy / wall:.3f}")
+              f"({kernels} kernels, {dense} of them the stage-0 filter's), "
+              f"idle share {1 - busy / wall:.3f}")
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True,

@@ -46,7 +46,27 @@ Phases, each fatal on failure:
      whole-ladder batch entry of `dense0_filter` against the plain version
      on the full VGA ladder at B=16, the full 1080p ladder at B=4 and a
      batch of four images of different sizes, with and without leaf words,
-     and that batch through `detect_batch` against each image alone.
+     and that batch through `detect_batch` against each image alone;
+ 12. the C++-semantics path's tables, with the trained flagship model
+     (models/flagship_synth.model: T=5, K=540, 27 landmarks, depth 4) on
+     VGA scenes of `make_scene` (`make_image` with three planted faces):
+     `dense0_filter` against its plain version on the method-1 ladder at
+     B=8 (rounding tables, windows from 20 px at a fixed step of 5, 13
+     scales) and on the banded method-0 canvases of one VGA image and of
+     one 1080p frame (pyramid levels packed as bands, shifted tables);
+     `dense0_image` on the method-1 ladder of one image; each timed (CUDA
+     events) beside its plain version and its bound;
+ 13. CppDetector.detect_batch with method 1 at B=8 (a warm pass, then a
+     timed pass: two `dense0_filter` launches), and CppDetector.detect with
+     method 1 (two `dense0_image` launches per image) and method 0 (two
+     `dense0_filter` launches per image) on 2 images each: bit-equal to the
+     same detector on the CPU, every planted face found;
+ 14. a multi-scale model of the same width through method 0's dense
+     multi-scale path (the plain filter; no kernel) on one image, bit-equal
+     to the CPU port;
+ 15. run_fddb over a temporary two-fold FDDB folder of 16 scenes fed
+     through imread=, for both methods: img/s, windows and mean reject
+     carts, fold 1 equal to phase 13's batch.
 
 The last lines are the card (nvidia-smi name and power limit), a
 {"kernels": [...]} JSON line, and {"ok": true, "device": {...}}.  Without a
@@ -75,6 +95,74 @@ def make_image(h, w, seed):
     img = np.kron(base, np.ones((8, 8), np.float32))[:h, :w]
     noise = rng.normal(0, 12, (h, w))
     return np.clip(img + noise, 0, 255).astype(np.uint8)
+
+
+# 27-landmark face template in [0, 1] window coordinates (brows, eyes,
+# nose, mouth, chin): the layout the flagship model was trained on
+FACE27 = np.array([
+    [0.22, 0.30], [0.30, 0.26], [0.38, 0.30], [0.62, 0.30], [0.70, 0.26],
+    [0.78, 0.26], [0.25, 0.40], [0.31, 0.38], [0.35, 0.41], [0.65, 0.41],
+    [0.69, 0.38], [0.75, 0.40], [0.50, 0.45], [0.44, 0.55], [0.50, 0.58],
+    [0.56, 0.55], [0.50, 0.62], [0.35, 0.72], [0.42, 0.69], [0.50, 0.68],
+    [0.58, 0.69], [0.65, 0.72], [0.50, 0.74], [0.42, 0.76], [0.58, 0.76],
+    [0.38, 0.88], [0.62, 0.88],
+])
+
+
+def _blur(img, sigma):
+    """Separable Gaussian blur (reflected borders), float64."""
+    r = int(3 * sigma + 0.5)
+    k = np.exp(-0.5 * (np.arange(-r, r + 1) / sigma) ** 2)
+    k /= k.sum()
+    out = np.pad(img, r, mode="reflect")
+    out = np.apply_along_axis(np.convolve, 1, out, k, "valid")
+    return np.apply_along_axis(np.convolve, 0, out, k, "valid")
+
+
+def _face(rng, size):
+    """A face patch as the flagship model's training scenes draw one: dark
+    landmark blobs, a forehead band and cheek highlights on noise, band
+    limited."""
+    base, spread = int(rng.integers(85, 175)), int(rng.integers(15, 45))
+    img = rng.integers(base - spread, base + spread, (size, size)).astype(np.float64)
+    dark, r = int(rng.integers(10, 60)), max(1, size // 24)
+    for gx, gy in FACE27:
+        x, y = int(gx * size), int(gy * size)
+        img[max(y - r, 0) : y + r + 1, max(x - r, 0) : x + r + 1] = dark
+    ys = int(FACE27[:6, 1].min() * size)
+    img[max(ys - size // 6, 0) : ys, size // 4 : 3 * size // 4] += int(rng.integers(25, 75))
+    bh, cy, ch = max(3, size // 16), int(FACE27[13, 1] * size), int(rng.integers(15, 50))
+    img[cy : cy + bh, size // 8 : size // 4] += ch
+    img[cy : cy + bh, 3 * size // 4 : 7 * size // 8] += ch
+    img += rng.integers(-12, 13, (size, size))
+    img = _blur(np.clip(img, 0, 255), max(0.6, 0.6 * size / 48))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def make_scene(h, w, seed, faces=3):
+    """`make_image` with `faces` non-overlapping faces of 60-149 px planted
+    in it.  Returns (image, [(x, y, size)] of the faces)."""
+    img = make_image(h, w, seed)
+    rng = np.random.default_rng(seed + 1000)
+    boxes = []
+    for _ in range(faces):
+        s = int(rng.integers(60, 150))
+        for _ in range(50):
+            x, y = int(rng.integers(0, w - s)), int(rng.integers(0, h - s))
+            if all(x + s <= bx or bx + bs <= x or y + s <= by or by + bs <= y
+                   for bx, by, bs in boxes):
+                break
+        img[y : y + s, x : x + s] = _face(rng, s)
+        boxes.append((x, y, s))
+    return img, boxes
+
+
+def iou(a, b):
+    """Intersection over union of two (x, y, w, h) boxes."""
+    x0, y0 = max(a[0], b[0]), max(a[1], b[1])
+    x1, y1 = min(a[0] + a[2], b[0] + b[2]), min(a[1] + a[3], b[1] + b[3])
+    inter = max(0, x1 - x0) * max(0, y1 - y0)
+    return inter / (a[2] * a[3] + b[2] * b[3] - inter)
 
 
 def log(*a):
@@ -158,6 +246,27 @@ def check_ladder(img, tabs, scales, depth, want, label):
         f"{len(scales)} scales, lbf=0/1 bit-equal in 2 launches, "
         f"alive {int(want[1].sum())}")
     return err
+
+
+def plain_flat(img, tabs, scales, depth):
+    """The plain version's flat [B, n(, nw)] outputs of a whole ladder,
+    with leaf words."""
+    from jda_tpu_torch.ops import dense0 as D0
+
+    return flat_ladder([
+        D0.scale_filter_reference(img, tabi, tabf, step=step, ny=ny, nx=nx,
+                                  depth=depth, emit_lbf=True)
+        for (_, step, ny, nx), (tabi, tabf) in zip(scales, tabs)
+    ])
+
+
+def same_cpp(a, b, what):
+    """Two CppDetector results (rects, scores, shapes, statistic) bit-equal."""
+    for f, x, y in zip(("rects", "scores", "shapes"), a[:3], b[:3]):
+        if x.shape != y.shape or not np.array_equal(x, y):
+            raise AssertionError(f"{what}: {f} differ ({len(a[0])} vs {len(b[0])} boxes)")
+    if a[3] != b[3]:
+        raise AssertionError(f"{what}: statistics differ, {a[3]} vs {b[3]}")
 
 
 def same_result(a, b, what):
@@ -288,6 +397,258 @@ def ladder_outputs(B, t, words=True):
         out += (torch.empty((B, t.n, D0.lbf_words(t.tabf.shape[0])),
                             dtype=torch.int32, device=dev),)
     return out
+
+
+def m0_canvas(cpp, gray, plan):
+    """An image's method-0 pyramid packed as the bands of its canvas, as
+    CppDetector._detect_m0_raw_batch lays it out."""
+    canvas = np.zeros((plan["Hc"], plan["Wc"]), np.uint8)
+    for (y0, _, _), (level, _) in zip(plan["m0_layout"], cpp._pyramid_m0(gray)):
+        canvas[y0 : y0 + level.shape[0], : level.shape[1]] = level
+    return canvas
+
+
+def event_ms(fn):
+    """CUDA-event time of one call of fn (for the plain versions, seconds
+    per call) and its result."""
+    import torch
+
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b), out
+
+
+def faces_found(results, truths):
+    """(planted faces matched by a detection at IoU >= 0.5, planted faces)."""
+    found = total = 0
+    for (rects, _, _, _), boxes in zip(results, truths):
+        for x, y, s in boxes:
+            total += 1
+            found += any(iou((x, y, s, s), r) >= 0.5 for r in rects)
+    return found, total
+
+
+def fold_lines(names, results):
+    """A fold file's lines for these images and CppDetector results
+    (test.cpp:153,163)."""
+    lines = []
+    for name, (rects, scores, _, _) in zip(names, results):
+        lines += [name, str(len(rects))]
+        lines += [f"{r[0]} {r[1]} {r[2]} {r[3]} {s:.6f}" for r, s in zip(rects, scores)]
+    return lines
+
+
+def cpp_phases(dev, depth, ms_model):
+    """Phases 12-15: the C++-semantics path (CppDetector, run_fddb) on the
+    card.  Returns the numbers the kernels line takes from them."""
+    import torch
+    import jda_tpu_torch as jt
+    from jda_tpu_torch.cascador import CppDetector
+    from jda_tpu_torch.fddb import run_fddb
+    from jda_tpu_torch.ops import dense0 as D0
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    flag = jt.load_model(os.path.join(root, "models", "flagship_synth.model"))
+    K, node_n = flag.K, flag.node_n
+    nw = D0.lbf_words(K)
+    got = {}
+
+    def reset():
+        torch.cuda.synchronize()
+        D0.scale_filter.launches = 0
+        D0.stage0_filter_image.launches = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return D0.scale_filter.launches, D0.stage0_filter_image.launches
+
+    # -- 12. both kernels on the C++ path's tables ---------------------------------
+    t0 = time.perf_counter()
+    scenes = [make_scene(480, 640, seed=200 + i) for i in range(16)]
+    imgs = [g for g, _ in scenes]
+    truth = [b for _, b in scenes]
+    cpp1 = CppDetector(flag, jt.Config(fddb_detect_method=1))
+    cpp0 = CppDetector(flag, jt.Config(fddb_detect_method=0))
+    plan1 = cpp1._m1_plan(480, 640)
+    n1, s1 = plan1["n"], len(plan1["scales"])
+    if plan1["scales"][0][:2] != (20, 5) or s1 != 13:
+        raise AssertionError(f"method-1 ladder: {plan1['scales']}")
+    b8 = torch.as_tensor(np.stack(imgs[:8]), device=dev)
+    log(f"[12] method-1 ladder (rounding tables): {s1} scales from win 20 at step 5, "
+        f"{n1} windows per image")
+    plain1_ms, want = event_ms(lambda: plain_flat(b8, plan1["tabs"], plan1["scales"], depth))
+    err = check_ladder(b8, plan1["tabs"], plan1["scales"], depth, want, "method-1 ladder B=8")
+    prep1 = D0.prepare_image(plan1["tabs"], meta=plan1["scales"], depth=depth, H=480, W=640)
+    out8, scr8 = ladder_outputs(8, prep1), D0.walk_scratch(8, prep1)
+    m1_ms = cuda_ms(lambda: D0.launch(b8, prep1, out8, scratch=scr8), reps=20)
+    head, surv, queue = phase_ms(lambda **kw: D0.launch(b8, prep1, out8, **kw), scr8,
+                                 D0.HEAD_CARTS)
+    compare_filter(out8, want, True, "method-1 ladder B=8, timed outputs")
+    nvis, alive = int(out8[2].sum(dtype=torch.int64)), int(out8[1].sum())
+    by, op, _, _ = ladder_bound(8, 480, 640, s1, n1, K, node_n, nvis, depth,
+                                lbf_bytes=alive * nw * 4)
+    got["m1_b8"] = dict(ms=m1_ms, plain_ms=plain1_ms, bound=bound_of(by, op), queue=queue)
+    log(f"[12] dense0_filter, method-1 ladder B=8 ({8 * n1} windows, LBF on): {m1_ms:.4f} ms "
+        f"(head {head:.4f}, survivors {surv:.4f}, queue {queue}), plain {plain1_ms:.1f} ms, "
+        f"bound {bound_of(by, op)[0]:.5f} ms ({bound_of(by, op)[1]}); alive {alive}, "
+        f"cart visits {nvis}")
+    del want, out8, scr8
+
+    plan0 = cpp0._m0_plan(480, 640)
+    canvas = torch.as_tensor(m0_canvas(cpp0, imgs[0], plan0), device=dev)[None]
+    n0, s0 = plan0["n"], len(plan0["scales"])
+    log(f"[12] method-0 canvas (shifted rounding tables): {tuple(canvas.shape[1:])}, {s0} "
+        f"bands, {n0} windows, band origins {[o[0] for o in plan0['origins']]}")
+    plain0_ms, want = event_ms(lambda: plain_flat(canvas, plan0["tabs"], plan0["scales"], depth))
+    err = max(err, check_ladder(canvas, plan0["tabs"], plan0["scales"], depth, want,
+                                "method-0 VGA canvas B=1"))
+    prep0 = D0.prepare_image(plan0["tabs"], meta=plan0["scales"], depth=depth,
+                             H=plan0["Hc"], W=640)
+    out1, scr1 = ladder_outputs(1, prep0), D0.walk_scratch(1, prep0)
+    m0_ms = cuda_ms(lambda: D0.launch(canvas, prep0, out1, scratch=scr1), reps=20)
+    compare_filter(out1, want, True, "method-0 VGA canvas, timed outputs")
+    nvis, alive = int(out1[2].sum(dtype=torch.int64)), int(out1[1].sum())
+    by, op, _, _ = ladder_bound(1, plan0["Hc"], 640, s0, n0, K, node_n, nvis, depth,
+                                lbf_bytes=alive * nw * 4)
+    got["m0_canvas"] = dict(ms=m0_ms, plain_ms=plain0_ms, bound=bound_of(by, op))
+    log(f"[12] dense0_filter, method-0 VGA canvas: {m0_ms:.4f} ms, plain {plain0_ms:.1f} ms, "
+        f"bound {bound_of(by, op)[0]:.5f} ms ({bound_of(by, op)[1]}); alive {alive}")
+    del want, out1, scr1
+
+    hd_img, _ = make_scene(1080, 1920, seed=300)
+    plan_hd = cpp0._m0_plan(1080, 1920)
+    hd_canvas = torch.as_tensor(m0_canvas(cpp0, hd_img, plan_hd), device=dev)[None]
+    log(f"[12] method-0 1080p canvas: {tuple(hd_canvas.shape[1:])}, "
+        f"{len(plan_hd['scales'])} bands, {plan_hd['n']} windows")
+    want = plain_flat(hd_canvas, plan_hd["tabs"], plan_hd["scales"], depth)
+    err = max(err, check_ladder(hd_canvas, plan_hd["tabs"], plan_hd["scales"], depth, want,
+                                "method-0 1080p canvas B=1"))
+    del want
+
+    e, out_img = check_image_kernel(b8[0], plan1["tabs"], plan1["scales"], depth,
+                                    "dense0_image, method-1 ladder")
+    img_err = e
+    outi, scri = ladder_outputs(1, prep1, words=False), D0.walk_scratch(1, prep1)
+    outi = tuple(o[0] for o in outi)
+    img_ms = cuda_ms(lambda: D0.launch_image(b8[0], prep1, outi, scratch=scri), reps=20)
+    plain_img_ms, _ = event_ms(lambda: D0.stage0_filter_image_reference(
+        b8[0], plan1["tabs"], meta=plan1["scales"], depth=depth))
+    nvis = int(out_img[2].sum(dtype=torch.int64))
+    by, op, _, _ = ladder_bound(1, 480, 640, s1, n1, K, node_n, nvis, depth)
+    got["m1_image"] = dict(ms=img_ms, plain_ms=plain_img_ms, bound=bound_of(by, op))
+    log(f"[12] dense0_image, method-1 ladder of one image: {img_ms:.4f} ms, plain "
+        f"{plain_img_ms:.1f} ms, bound {bound_of(by, op)[0]:.5f} ms ({bound_of(by, op)[1]}); "
+        f"done in {time.perf_counter() - t0:.1f} s, max |score err| {max(err, img_err)}")
+    got["err"], got["img_err"] = err, img_err
+    del b8, outi, scri
+
+    # -- 13. CppDetector on the card against the CPU ------------------------------------
+    t0 = time.perf_counter()
+    cpp1.detect_batch(imgs[8:])  # warm: the plan's kernel tables, the allocator
+    reset()
+    t = time.perf_counter()
+    res_b = cpp1.detect_batch(imgs[:8])
+    launches_b = counts()
+    dt_b = time.perf_counter() - t
+    cpp1.detect(imgs[8])
+    reset()
+    t = time.perf_counter()
+    res_1 = [cpp1.detect(g) for g in imgs[:2]]
+    launches_1 = counts()
+    dt_1 = time.perf_counter() - t
+    cpp0.detect(imgs[8])
+    reset()
+    t = time.perf_counter()
+    res_0 = [cpp0.detect(g) for g in imgs[:2]]
+    launches_0 = counts()
+    dt_0 = time.perf_counter() - t
+    log(f"[13] detect_batch, method 1, B=8: {dt_b:.3f} s = {8 / dt_b:.2f} img/s; launches "
+        f"(dense0_filter, dense0_image) {launches_b}; faces per image "
+        f"{[len(r[0]) for r in res_b]}")
+    log(f"[13] detect, method 1, 2 images: {dt_1:.3f} s = {2 / dt_1:.2f} img/s, launches "
+        f"{launches_1}; method 0, 2 images: {dt_0:.3f} s = {2 / dt_0:.2f} img/s, "
+        f"launches {launches_0}")
+    if launches_b != (2, 0) or launches_1 != (0, 4) or launches_0 != (4, 0):
+        raise AssertionError(f"C++ path launches: batch {launches_b}, method 1 "
+                             f"{launches_1}, method 0 {launches_0}")
+    for r in res_b + res_1 + res_0:
+        if not (np.isfinite(r[1]).all() and np.isfinite(r[2]).all()) or r[2].shape != (
+                len(r[0]), 2 * flag.landmark_n):
+            raise AssertionError("C++ path: non-finite output or output of the wrong shape")
+    for a, b in zip(res_b[:2], res_1):
+        same_cpp(a, b, "method 1: detect_batch against detect")
+    w1 = CppDetector(flag, jt.Config(fddb_detect_method=1), device="cpu").detect(imgs[0])
+    same_cpp(w1, res_b[0], "method 1 on the card against the CPU")
+    w0 = CppDetector(flag, jt.Config(fddb_detect_method=0), device="cpu").detect(imgs[0])
+    same_cpp(w0, res_0[0], "method 0 on the card against the CPU")
+    f1, n_f1 = faces_found(res_b, truth[:8])
+    f0, n_f0 = faces_found(res_0, truth[:2])
+    if f1 != n_f1 or f0 != n_f0:
+        raise AssertionError(f"planted faces found: method 1 {f1}/{n_f1}, method 0 {f0}/{n_f0}")
+    log(f"[13] bit-equal to the CPU port on image 0 (method 1: {len(w1[0])} faces, "
+        f"{w1[3]}; method 0: {len(w0[0])} faces); planted faces found {f1}/{n_f1} "
+        f"(method 1), {f0}/{n_f0} (method 0); done in {time.perf_counter() - t0:.1f} s")
+    got.update(paths={"cpp_m1_batch": launches_b, "cpp_m1_detect": launches_1,
+                      "cpp_m0_detect": launches_0},
+               rates={"cpp_m1_batch_img_s": 8 / dt_b, "cpp_m1_img_s": 2 / dt_1,
+                      "cpp_m0_img_s": 2 / dt_0})
+
+    # -- 14. a multi-scale model through method 0's dense path ---------------------------
+    t0 = time.perf_counter()
+    cpp_ms = CppDetector(ms_model, jt.Config(fddb_detect_method=0))
+    if not cpp_ms._m0_dense_ms_applicable():
+        raise AssertionError("the multi-scale model did not take the dense method-0 path")
+    cpp_ms.detect(imgs[9])
+    reset()
+    t = time.perf_counter()
+    r_ms = cpp_ms.detect(imgs[0])
+    launches_ms = counts()
+    dt_ms = time.perf_counter() - t
+    same_cpp(CppDetector(ms_model, jt.Config(fddb_detect_method=0), device="cpu").detect(
+        imgs[0]), r_ms, "multi-scale method 0 on the card against the CPU")
+    if launches_ms != (0, 0):
+        raise AssertionError(f"multi-scale method 0 launched the kernels {launches_ms}")
+    log(f"[14] multi-scale model, method 0 (plain dense filter, no kernel): {dt_ms:.3f} s "
+        f"per image, {len(r_ms[0])} faces, {r_ms[3]}, bit-equal to the CPU port; done in "
+        f"{time.perf_counter() - t0:.1f} s")
+    got["rates"]["cpp_ms_m0_img_s"] = 1 / dt_ms
+
+    # -- 15. the FDDB harness --------------------------------------------------------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(os.path.join(tmp, "FDDB-folds"))
+        by_path, folds = {}, {}
+        for f in (1, 2):
+            folds[f] = [f"scenes/fold_{f:02d}/img_{i:03d}" for i in range(8)]
+            with open(os.path.join(tmp, "FDDB-folds", f"FDDB-fold-{f:02d}.txt"), "w") as fh:
+                fh.write("\n".join(folds[f]) + "\n")
+            for i, name in enumerate(folds[f]):
+                by_path[os.path.join(tmp, "images", name + ".jpg")] = imgs[8 * (f - 1) + i]
+        for method, want, fold_launches in ((1, res_b, (4, 0)), (0, res_0, (32, 0))):
+            out_dir = os.path.join(tmp, f"out{method}")
+            reset()
+            stats = run_fddb(flag, jt.Config(fddb_detect_method=method, fddb_dir=tmp),
+                             folds=[1, 2], out_dir=out_dir, imread=by_path.get)
+            launches = counts()
+            with open(os.path.join(out_dir, "fold-01-out.txt")) as fh:
+                lines = fh.read().splitlines()
+            head_lines = fold_lines(folds[1], want)
+            if stats["images"] != 16 or lines[: len(head_lines)] != head_lines:
+                raise AssertionError(f"run_fddb method {method}: fold 1 differs from phase 13")
+            if launches != fold_launches:
+                raise AssertionError(f"run_fddb method {method}: launches {launches}")
+            log(f"[15] run_fddb method {method}: {stats['images']} images, "
+                f"{stats['images_per_sec']:.2f} img/s (plans built in the run), windows "
+                f"{stats['windows']}, faces {stats['face_windows']}, mean reject carts "
+                f"{stats['average_cart_n']:.4f}, launches {launches}; fold 1 equal to "
+                f"phase 13")
+            got["paths"][f"fddb_m{method}"] = launches
+            got["rates"][f"fddb_m{method}_img_s"] = stats["images_per_sec"]
+    log(f"[15] done in {time.perf_counter() - t0:.1f} s")
+    return got
 
 
 def main() -> int:
@@ -686,6 +1047,9 @@ def main() -> int:
         f"cart visits {nvis_hd}")
     head_sweep(10, "VGA image", launch_vga, out_vga, scr_vga)
     head_sweep(10, "1080p frame", launch_hd, out_hd, scr_hd)
+    del out_vga, scr_vga, out_hd, scr_hd
+
+    cpp = cpp_phases(dev, depth, ms_loaded)
     log("the times of both kernels' first versions are in PERF.md's kernel table")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
@@ -699,7 +1063,9 @@ def main() -> int:
         "also_replaces": ["jda_tpu/ops/dense0.py:1063", "jda_tpu/ops/dense0.py:1253"],
         "launches": launches,
         "launches_per_batch": launches // 4,  # the timed stream is 4 batches
-        "max_abs_err": err,
+        # each C++ path's own run, counts set to 0 just before it
+        "launches_cpp": {k: v[0] for k, v in cpp["paths"].items()},
+        "max_abs_err": max(err, cpp["err"]),
         "ms": statistics.median([ms, ms2]),
         "head_ms": head_ms,
         "survivors_ms": surv_ms,
@@ -714,6 +1080,15 @@ def main() -> int:
         "ms_1080p": hd4_ms,
         "bound_ms_1080p": bound_of(hb4_bytes, hb4_ops)[0],
         "queue_len_1080p": hd4_queue,
+        "ms_cpp_m1_b8": cpp["m1_b8"]["ms"],
+        "plain_ms_cpp_m1_b8": cpp["m1_b8"]["plain_ms"],
+        "bound_ms_cpp_m1_b8": cpp["m1_b8"]["bound"][0],
+        "bound_by_cpp_m1_b8": cpp["m1_b8"]["bound"][1],
+        "queue_len_cpp_m1_b8": cpp["m1_b8"]["queue"],
+        "ms_cpp_m0_canvas": cpp["m0_canvas"]["ms"],
+        "plain_ms_cpp_m0_canvas": cpp["m0_canvas"]["plain_ms"],
+        "bound_ms_cpp_m0_canvas": cpp["m0_canvas"]["bound"][0],
+        "bound_by_cpp_m0_canvas": cpp["m0_canvas"]["bound"][1],
     }, {
         "name": "dense0_image",
         "route": "cuda",
@@ -723,7 +1098,8 @@ def main() -> int:
         "also_replaces": ["jda_tpu/ops/dense0.py:753"],
         "launches": image_launches,
         "launches_per_batch": image_launches // len(unfused_imgs),  # of one image
-        "max_abs_err": img_err,
+        "launches_cpp": {k: v[1] for k, v in cpp["paths"].items()},
+        "max_abs_err": max(img_err, cpp["img_err"]),
         "ms": statistics.median([img_ms, img_ms2]),
         "head_ms": img_head,
         "survivors_ms": img_surv,
@@ -738,7 +1114,11 @@ def main() -> int:
         "ms_1080p": hd_ms,
         "bound_ms_1080p": bound_of(hb_bytes, hb_ops)[0],
         "queue_len_1080p": hd_queue,
-    }]}))
+        "ms_cpp_m1_image": cpp["m1_image"]["ms"],
+        "plain_ms_cpp_m1_image": cpp["m1_image"]["plain_ms"],
+        "bound_ms_cpp_m1_image": cpp["m1_image"]["bound"][0],
+        "bound_by_cpp_m1_image": cpp["m1_image"]["bound"][1],
+    }], "cpp_img_s": cpp["rates"]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

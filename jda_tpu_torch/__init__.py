@@ -13,6 +13,7 @@ Public surface mirrors the reference C API (c/jda.h:31-68): load a binary
 model, detect -> bboxes + landmarks + scores.
 """
 
+from jda_tpu_torch.config import Config
 from jda_tpu_torch.params import (
     CascadeParams,
     load_model,
@@ -23,6 +24,7 @@ from jda_tpu_torch.params import (
 from jda_tpu_torch.detect import Detector, DetectionResult, detect
 
 __all__ = [
+    "Config",
     "CascadeParams",
     "load_model",
     "save_model",
@@ -31,4 +33,6 @@ __all__ = [
     "Detector",
     "DetectionResult",
     "detect",
+    # imported on their own: jda_tpu_torch.cascador.CppDetector,
+    # jda_tpu_torch.fddb.run_fddb, jda_tpu_torch.native.NativeDetector
 ]

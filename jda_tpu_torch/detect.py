@@ -17,7 +17,9 @@ reference C API `jdaDetect` (c/jda.c:318-480):
 Two paths.  The fused path (ops/fused.py) serves single-scale models with
 T > 0, a batch of images per call.  The non-fused path serves one image
 per call: multi-scale models, T == 0 models, and any model when the
-environment variable JDA_TPU_FUSED is "0".  Entry points run on CUDA
+environment variable JDA_TPU_FUSED is "0".  The C++-semantics detector
+(cascador.py) drives both through explicit window ladders
+(`Detector._plan_windows`) and `_run_batch`.  Entry points run on CUDA
 unless the caller passes device="cpu".
 """
 
@@ -149,9 +151,8 @@ class Detector:
     depends only on the (unchanged within a stage) shape, and the score
     chain recomputes the identical float sequence from zero.
 
-    Not ported yet, each raising NotImplementedError that names its ROADMAP
-    item: `mesh=` (multi-GPU detection, A.7) and `_run_batch(with_stp=True)`
-    (the per-stage similarity transform of the C++ path, A.9).
+    Not ported yet: `mesh=` (multi-GPU detection, A.7), which raises
+    NotImplementedError naming it.
     """
 
     SLAB = 1 << 16  # windows per prefilter pass (bounds temp memory)
@@ -207,6 +208,7 @@ class Detector:
             # host copies of stage-0 params for the dense filter's tables
             p32 = params.astype(np.float32)
             self._host_stage0 = {
+                "scale": params.scale[0],
                 "lmk1": params.lmk1[0],
                 "lmk2": params.lmk2[0],
                 "off1": p32.off1[0],
@@ -218,6 +220,7 @@ class Detector:
                 "cart_th": p32.cart_th[0],
             }
             self._ms32 = params.mean_shape.astype(np.float32)
+        self._tab_cache: Dict[tuple, Dict[str, np.ndarray]] = {}
         self._plans: Dict[tuple, dict] = {}
         self._pinned: Optional[torch.Tensor] = None
         self._upload_done: Optional[torch.cuda.Event] = None
@@ -237,17 +240,42 @@ class Detector:
     def _plan(self, Hc, Wc, scale, min_size, max_size_c) -> dict:
         """Window ladder and per-scale dense tables for one canonical
         geometry (jdaDetect semantics, truncation), cached."""
-        key = (Hc, Wc, float(scale), min_size, max_size_c, self.rounding)
+        key = ("c", Hc, Wc, float(scale), min_size, max_size_c, self.rounding)
         plan = self._plans.get(key)
-        if plan is not None:
-            return plan
-        x, y, win, scales = enumerate_windows(Wc, Hc, scale, min_size, max_size_c)
-        tabs = []
-        # the dense filter applies to single-scale models with a stage 0
-        for w_, s_, _, _ in scales if self.single_scale and self.T > 0 else ():
-            t = D0.node_tables(
-                self._ms32, self._host_stage0, w_, s_, rounding=self.rounding
+        if plan is None:
+            x, y, win, scales = enumerate_windows(Wc, Hc, scale, min_size, max_size_c)
+            plan = self._plan_windows(
+                key, Hc, Wc, x, y, win, scales, rounding=self.rounding
             )
+        return plan
+
+    def _plan_windows(
+        self, key, Hc, Wc, x, y, win, scales, rounding: bool, origins=None
+    ) -> dict:
+        """Build and cache a plan from an explicit window ladder: the C-API
+        ladder, the C++ path's method-1 ladder, and its banded method-0
+        canvases, where `origins` gives each scan grid a canvas origin
+        (y0, x0) and its node tables are shifted there (ops/fused.py).
+        Dense tables are built for single-scale models with a stage 0;
+        host node tables are cached per (win, step, rounding)."""
+        if origins is not None and os.environ.get("JDA_TPU_BUCKETS", "none") != "none":
+            raise NotImplementedError(
+                "JDA_TPU_BUCKETS other than 'none' selects the canvas-bucket "
+                "tail of banded scans (ops/mxu_tail.py), which is not ported "
+                "yet (ROADMAP A.13)"
+            )
+        tabs = []
+        for i, (w_, s_, _, _) in enumerate(
+            scales if self.single_scale and self.T > 0 else ()
+        ):
+            tkey = (w_, s_, rounding)
+            if tkey not in self._tab_cache:
+                self._tab_cache[tkey] = D0.node_tables(
+                    self._ms32, self._host_stage0, w_, s_, rounding=rounding
+                )
+            t = self._tab_cache[tkey]
+            if origins is not None and tuple(origins[i]) != (0, 0):
+                t = D0.shift_tables(t, origins[i][0], origins[i][1], s_)
             tabi, tabf = D0.pack_tables(t, self.params.node_n)
             tabs.append(
                 (
@@ -260,11 +288,14 @@ class Detector:
             "y": y,
             "win": win,
             "n": len(x),
-            "scales": tuple(scales),
+            "scales": tuple(tuple(int(v) for v in m) for m in scales),
             "tabs": tuple(tabs),
             "xywin": torch.as_tensor(
-                np.stack([x, y, win], axis=1).astype(np.int32), device=self.device
+                np.stack([x, y, win], axis=1).astype(np.int32).reshape(-1, 3),
+                device=self.device,
             ),
+            "rounding": bool(rounding),
+            "origins": None if origins is None else tuple(tuple(o) for o in origins),
             "Hc": Hc,
             "Wc": Wc,
         }
@@ -317,12 +348,17 @@ class Detector:
             )
         return plan["image"]
 
-    def _run(self, plan, grays, B) -> Dict[str, torch.Tensor]:
-        imgs, dims = self._upload(grays, B, plan["Hc"], plan["Wc"])
+    def _run(self, plan, grays, B, dims=None) -> Dict[str, torch.Tensor]:
+        """One fused pass of a plan over a batch: `grays` placed top-left in
+        its [B, Hc, Wc] planes; `dims`, where given, replaces each image's
+        own (w, h) ([B, S, 2] per band for banded plans)."""
+        imgs, img_dims = self._upload(grays, B, plan["Hc"], plan["Wc"])
+        if dims is not None:
+            img_dims = torch.as_tensor(np.asarray(dims, np.int32), device=self.device)
         return F.run_fused(
             self.dev,
             imgs,
-            dims,
+            img_dims,
             plan["tabs"],
             plan["xywin"],
             meta=plan["scales"],
@@ -331,9 +367,10 @@ class Detector:
             T=self.T,
             H=plan["Hc"],
             W=plan["Wc"],
-            rounding=self.rounding,
+            rounding=plan["rounding"],
             s0_lbf=True,
             prepared=self._dense_tables(plan),
+            origins=plan["origins"],
         )
 
     # -- non-fused path: one image, host ladder, compaction between stages ---
@@ -366,14 +403,11 @@ class Detector:
         [n], alive [n], shape [n, 2L], nvis [n], in the original window
         order.  Rejected windows keep the score, shape and nvis they died
         with; windows that the dense filter or the prefilter rejected
-        have the mean shape.
+        have the mean shape.  `with_stp` applies the per-stage similarity
+        transform of the C++ path (cascador.cpp:180): recomputed from the
+        stage-entry shapes and shared by every cart chunk of the stage and
+        by its regression.
         """
-        if with_stp:
-            raise NotImplementedError(
-                "_run_batch(with_stp=True), the per-stage similarity "
-                "transform of the C++-semantics path, is not ported yet "
-                "(ROADMAP A.9)"
-            )
         dev = self.device
         n_total = geom["base"].shape[0]
         L2 = self.params.landmark_dim
@@ -443,16 +477,17 @@ class Detector:
             )
             if carried is not None:
                 state.update(carried)
+            stp = C.st_calc_dev(state["shape"], ms) if with_stp else None
             leaves_parts = []
             for chunk in self.stage_chunks[t]:
                 state, lv = C.run_cart_chunk(
                     chunk, flat_img, state, depth=self.depth, rounding=rounding,
-                    single_scale=self.single_scale,
+                    single_scale=self.single_scale, stp=stp,
                 )
                 leaves_parts.append(lv)
             state = C.apply_regression(
                 self.dev["W"][t], torch.cat(leaves_parts, dim=1), state,
-                leaf_n=self.leaf_n,
+                leaf_n=self.leaf_n, stp=stp,
             )
             # record rejected lanes' final values; keep survivors live
             keep = state["alive"]

@@ -15,12 +15,16 @@ at a time, c/jda.c:360-414):
 
 Landmark selection is plain indexing (exact), where the JAX package uses a
 one-hot matmul at HIGHEST precision.  Every float op keeps the JAX order, so
-the results are bit-identical on the same inputs.
+the results are bit-identical on the same inputs.  The exception is the
+per-stage similarity transform of the C++ path (`stp`, off in both shipped
+configs): its means, sums and 2x2 products may round differently from
+XLA's, so results with it agree with the JAX package's within its own
+tolerances (tests/test_st_detect.py).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -53,6 +57,38 @@ def take_fill(flat_img: Tensor, idx: Tensor) -> Tensor:
     n = flat_img.shape[0]
     v = flat_img[idx.clamp(max=n - 1)].to(torch.int32)
     return torch.where(idx < n, v, torch.iinfo(torch.int32).min)
+
+
+def st_calc_dev(shapes: Tensor, mean_shape: Tensor) -> Tensor:
+    """Batched STParameter::Calc (data.cpp:64-114): [N, 2, 2] scale*rotation
+    matrices mapping mean-shape-frame offsets into each window's current
+    shape frame, in float32.  st_calc_dev(mean, mean) is exactly the
+    identity, which the dense stage-0 filter relies on."""
+    x1 = shapes[:, 0::2]
+    y1 = shapes[:, 1::2]
+    x2 = mean_shape[0::2].expand_as(x1)
+    y2 = mean_shape[1::2].expand_as(y1)
+    tx1 = x1 - x1.mean(1, keepdim=True)
+    ty1 = y1 - y1.mean(1, keepdim=True)
+    tx2 = x2 - x2.mean(1, keepdim=True)
+    ty2 = y2 - y2.mean(1, keepdim=True)
+    s1 = torch.sqrt((tx1 * tx1 + ty1 * ty1).sum(1))
+    s2 = torch.sqrt((tx2 * tx2 + ty2 * ty2).sum(1))
+    scale = s1 / s2
+    tx1n, ty1n = tx1 / s1[:, None], ty1 / s1[:, None]
+    tx2n, ty2n = tx2 / s2[:, None], ty2 / s2[:, None]
+    num = (ty1n * tx2n - tx1n * ty2n).sum(1)
+    den = (tx1n * tx2n + ty1n * ty2n).sum(1)
+    norm = torch.sqrt(num * num + den * den)
+    sin_t = num / norm
+    cos_t = den / norm
+    return torch.stack(
+        [
+            torch.stack([scale * cos_t, scale * -sin_t], dim=1),
+            torch.stack([scale * sin_t, scale * cos_t], dim=1),
+        ],
+        dim=1,
+    )
 
 
 def init_state(
@@ -89,13 +125,16 @@ def carts_descend(
     depth: int,
     rounding: bool,
     single_scale: bool = False,
+    stp: Optional[Tensor] = None,
 ) -> Tuple[Tensor, Tensor]:
     """Tree descent of all C carts of `chunk` for all N windows.
 
     Within a stage the trees are independent: the running score only gates
     whether the reference keeps evaluating (cascador.cpp:188-191), never
     which pixels a tree reads.  So all carts descend at once over an [N, C]
-    frontier; the score chain stays sequential (score_chain).
+    frontier; the score chain stays sequential (score_chain).  `stp`
+    [N, 2, 2] maps each feature offset into the window's current shape
+    frame first (STParameter::Apply, data.cpp:41-42).
 
     Returns (leaves [N, C] int32, b [N, C] float32 leaf scores).
     """
@@ -124,8 +163,14 @@ def carts_descend(
             off = chunk[off_f][cart, node]  # [N, C, 2]
             px = shape_x.gather(1, lmk)
             py = shape_y.gather(1, lmk)
-            x = to_int((px + off[..., 0]) * pw.to(torch.float32))
-            y = to_int((py + off[..., 1]) * ph.to(torch.float32))
+            ox, oy = off[..., 0], off[..., 1]
+            if stp is not None:
+                ox, oy = (
+                    stp[:, 0, 0, None] * ox + stp[:, 0, 1, None] * oy,
+                    stp[:, 1, 0, None] * ox + stp[:, 1, 1, None] * oy,
+                )
+            x = to_int((px + ox) * pw.to(torch.float32))
+            y = to_int((py + oy) * ph.to(torch.float32))
             x = torch.minimum(torch.clamp(x, min=0), pw - 1)
             y = torch.minimum(torch.clamp(y, min=0), ph - 1)
             idx = base + y.to(torch.int64) * stride + x
@@ -168,6 +213,7 @@ def run_cart_chunk(
     depth: int,
     rounding: bool,
     single_scale: bool = False,
+    stp: Optional[Tensor] = None,
 ) -> Tuple[Dict[str, Tensor], Tensor]:
     """Run a contiguous run of carts (no regression at the end).
 
@@ -180,6 +226,7 @@ def run_cart_chunk(
         depth=depth,
         rounding=rounding,
         single_scale=single_scale,
+        stp=stp,
     )
     score, alive, nvis = score_chain(
         b, chunk, state["score"], state["alive"], state["nvis"]
@@ -196,6 +243,7 @@ def apply_regression(
     *,
     leaf_n: int,
     exact: bool = True,
+    stp: Optional[Tensor] = None,  # [N, 2, 2] similarity (mean -> current)
 ) -> Dict[str, Tensor]:
     """Per-stage shape update from local binary features.
 
@@ -206,6 +254,10 @@ def apply_regression(
     flip a truncation boundary.  exact=False sums with one one-hot matmul
     (~1e-7 relative difference).
 
+    stp rotates the summed delta before the shape update (GenDeltaShape's
+    stp_mc.Apply, btcart.cpp:407-424): the weight rows are summed from zero
+    first, then rotated, then added to the shape.
+
     Only stage survivors receive the update (rejected windows stop moving).
     """
     n, K = leaves.shape
@@ -213,13 +265,22 @@ def apply_regression(
     Wk = W_t.reshape(K, leaf_n, L2)
     lv = leaves.to(torch.int64)
     if exact:
-        new_shape = state["shape"]
+        delta = state["shape"] if stp is None else torch.zeros_like(state["shape"])
         for k in range(K):
-            new_shape = new_shape + Wk[k][lv[:, k]]
+            delta = delta + Wk[k][lv[:, k]]
     else:
         onehot = torch.nn.functional.one_hot(lv, leaf_n).to(W_t.dtype)
         delta = onehot.reshape(n, K * leaf_n) @ W_t
-        new_shape = state["shape"] + delta
+    if stp is not None:
+        dx, dy = delta[:, 0::2], delta[:, 1::2]
+        delta = torch.stack(
+            [
+                stp[:, 0, 0, None] * dx + stp[:, 0, 1, None] * dy,
+                stp[:, 1, 0, None] * dx + stp[:, 1, 1, None] * dy,
+            ],
+            dim=2,
+        ).reshape(n, L2)
+    new_shape = delta if exact and stp is None else state["shape"] + delta
     out = dict(state)
     out["shape"] = torch.where(state["alive"][:, None], new_shape, state["shape"])
     return out
@@ -247,11 +308,18 @@ def cascade_full(
     T: int,
     exact: bool = True,
     single_scale: bool = False,
+    with_stp: bool = False,
 ) -> Dict[str, Tensor]:
     """All T stages on one batch, no compaction (reference-faithful
-    scoring).  The per-stage similarity transform (with_stp) is not
-    ported."""
+    scoring).
+
+    with_stp reproduces Validate's per-stage similarity transform
+    (cascador.cpp:180,196): recomputed from each window's current shape at
+    stage entry, applied to feature offsets during descent and to the
+    regression delta.  Off in both shipped configs.
+    """
     for t in range(T):
+        stp = st_calc_dev(state["shape"], dev["mean_shape"]) if with_stp else None
         state, leaves = run_cart_chunk(
             stage_params(dev, t),
             flat_img,
@@ -259,8 +327,9 @@ def cascade_full(
             depth=depth,
             rounding=rounding,
             single_scale=single_scale,
+            stp=stp,
         )
         state = apply_regression(
-            dev["W"][t], leaves, state, leaf_n=leaf_n, exact=exact
+            dev["W"][t], leaves, state, leaf_n=leaf_n, exact=exact, stp=stp
         )
     return state

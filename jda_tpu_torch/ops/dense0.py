@@ -23,7 +23,11 @@ plain PyTorch version: `scale_filter_reference`, which follows the JAX
 package's `_scale_filter` (phase planes and shifted crops, full cart loop
 for every window), scale by scale.
 
-Applicability: single-scale models on the C-API window ladder.
+Applicability: single-scale models, on the C-API window ladder (truncated
+offsets) and on the C++ path's ladders (rounded offsets, `rounding=True`;
+banded canvases, `shift_tables`).  Multi-scale models on the C++ path's
+method 0 take `stage0_filter_all_scales_ms`, plain PyTorch on every device
+as in the JAX package, where that filter is XLA only.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import numpy as np
 import torch
 
 from jda_tpu_torch.ops import _build
+from jda_tpu_torch.ops.resize import cv_fixed_combine, cv_linear_taps_fixed
 
 Tensor = torch.Tensor
 
@@ -103,6 +108,106 @@ def node_tables(
         "std": stage["std"].astype(np.float32),
         "cth": stage["cart_th"].astype(np.float32),
     }
+
+
+def node_tables_ms(
+    mean_shape_f32: np.ndarray,  # [2L] float32
+    stage: Dict[str, np.ndarray],  # host stage-0 params incl. "scale"
+    win: int,
+    step: int,
+    sizes: Tuple[int, int, int],  # (img_o_size, img_h_size, img_q_size)
+    rounding: bool = True,
+) -> Dict[str, np.ndarray]:
+    """Multi-scale crop tables for the dense stage-0 filter (C++ method-0
+    semantics, cascador.cpp:216-262): every window is a win x win crop of
+    the scan level, per-window resized to the o/h/q patch sizes with
+    cv::resize INTER_LINEAR, and feature pixels are read from the resized
+    patch at clip(to_int((mean + offset) * size_s), 0, size_s - 1).
+
+    Because the resize ratio win -> size_s is fixed, each resized-patch
+    pixel is a fixed-point 4-tap combination of window-crop pixels at
+    offsets that are constant per (cart, node, point), so each point becomes
+    4 phase-plane crops plus OpenCV's exact integer combine
+    (ops/resize.cv_fixed_combine).  Origin-scale points degenerate to
+    identity taps (size_o == win in the method-0 scan).
+
+    Table layout per point p in {1, 2}: pi{p}/u{p}/v{p} [C, node_n, 4]
+    (crop order r0c0, r0c1, r1c0, r1c1), ax0_{p}/ax1_{p}/by0_{p}/by1_{p}
+    [C, node_n] int32 (coefficient scale 2^11)."""
+    ms_x = mean_shape_f32[0::2].astype(np.float32)
+    ms_y = mean_shape_f32[1::2].astype(np.float32)
+    scale_arr = np.asarray(stage["scale"], np.int32)  # [C, node_n]
+    sizes = tuple(int(s) for s in sizes)
+    size_of = np.asarray(sizes, np.int32)[scale_arr]  # [C, node_n]
+    msz = max(sizes)
+    # padded per-scale tap LUTs [3, msz]
+    lut_s0 = np.zeros((3, msz), np.int32)
+    lut_s1 = np.zeros((3, msz), np.int32)
+    lut_c0 = np.zeros((3, msz), np.int32)
+    lut_c1 = np.zeros((3, msz), np.int32)
+    for s, sz in enumerate(sizes):
+        s0, s1, c0, c1 = cv_linear_taps_fixed(win, sz)
+        lut_s0[s, :sz], lut_s1[s, :sz] = s0, s1
+        lut_c0[s, :sz], lut_c1[s, :sz] = c0, c1
+
+    def to_int(v):
+        if rounding:
+            return np.where(v >= 0, np.floor(v + 0.5), np.ceil(v - 0.5)).astype(
+                np.int32
+            )
+        return v.astype(np.int32)
+
+    out: Dict[str, np.ndarray] = {}
+    for p, (lmk, off) in enumerate(
+        ((stage["lmk1"], stage["off1"]), (stage["lmk2"], stage["off2"])), 1
+    ):
+        px = ms_x[lmk] + off[..., 0].astype(np.float32)
+        py = ms_y[lmk] + off[..., 1].astype(np.float32)
+        szf = size_of.astype(np.float32)
+        xr = np.clip(to_int(px * szf), 0, size_of - 1)
+        yr = np.clip(to_int(py * szf), 0, size_of - 1)
+        c0 = lut_s0[scale_arr, xr]
+        c1 = lut_s1[scale_arr, xr]
+        r0 = lut_s0[scale_arr, yr]
+        r1 = lut_s1[scale_arr, yr]
+        ys = np.stack([r0, r0, r1, r1], -1)  # [C, node_n, 4] src rows
+        xs = np.stack([c0, c1, c0, c1], -1)  # src cols
+        out[f"pi{p}"] = ((ys % step) * step + (xs % step)).astype(np.int32)
+        out[f"u{p}"] = (ys // step).astype(np.int32)
+        out[f"v{p}"] = (xs // step).astype(np.int32)
+        out[f"ax0_{p}"] = lut_c0[scale_arr, xr]
+        out[f"ax1_{p}"] = lut_c1[scale_arr, xr]
+        out[f"by0_{p}"] = lut_c0[scale_arr, yr]
+        out[f"by1_{p}"] = lut_c1[scale_arr, yr]
+    out.update(
+        th=np.asarray(stage["feat_th"], np.int32),
+        ls=np.asarray(stage["leaf_scores"], np.float32),
+        mean=np.asarray(stage["mean"], np.float32),
+        std=np.asarray(stage["std"], np.float32),
+        cth=np.asarray(stage["cart_th"], np.float32),
+    )
+    return out
+
+
+def shift_tables(
+    tab: Dict[str, np.ndarray], y0: int, x0: int, step: int
+) -> Dict[str, np.ndarray]:
+    """Shift a node table (`node_tables` or `node_tables_ms`) to a
+    window-grid origin (y0, x0) on the canvas.
+
+    Both must be multiples of step: window (iy, ix) of the shifted grid
+    sits at (y0 + iy*step, x0 + ix*step), and because y0 % step == 0 the
+    phase index is unchanged while the plane row/col offsets translate by
+    (y0/step, x0/step).  Lets one canvas carry several banded window grids
+    (packed method-0 pyramids)."""
+    if y0 % step or x0 % step:
+        raise ValueError(f"shift_tables: origin {(y0, x0)} off the step {step}")
+    out = dict(tab)
+    out["u1"] = tab["u1"] + y0 // step
+    out["u2"] = tab["u2"] + y0 // step
+    out["v1"] = tab["v1"] + x0 // step
+    out["v2"] = tab["v2"] + x0 // step
+    return out
 
 
 def pack_tables(tab: Dict[str, np.ndarray], node_n: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -229,6 +334,98 @@ def scale_filter_reference(
     if not emit_lbf:
         return score, alive, nvis
     return score, alive, nvis, torch.stack(words, dim=-1)
+
+
+MS_CART_CHUNK = 16
+
+
+def scale_filter_ms_reference(
+    img: Tensor,  # [B, H, W] uint8
+    tab: Dict[str, np.ndarray],  # node_tables_ms (optionally shifted)
+    *,
+    step: int,
+    ny: int,
+    nx: int,
+    depth: int,
+):
+    """The multi-scale filter of one scan grid (the JAX package's
+    `_scale_filter_ms`), plain PyTorch on the image's device: every cart on
+    every window, each node point read as 4 phase-plane crops combined with
+    OpenCV's fixed-point arithmetic (`cv_fixed_combine`), then the same
+    score chain as `scale_filter_reference`.  The crops of MS_CART_CHUNK
+    carts are gathered at once (bounding the gather's memory); the chain
+    runs cart by cart.
+
+    Returns (score f32, alive bool, nvis i32), each [B, ny, nx]."""
+    B, dev = img.shape[0], img.device
+    node_n = (1 << (depth - 1)) - 1
+    ph = _phase_decompose(img.to(torch.int32), step)
+    _, _, Hp, Wp = ph.shape
+    flat = ph.reshape(B, -1)
+    grid = (
+        torch.arange(ny, device=dev)[:, None] * Wp + torch.arange(nx, device=dev)
+    ).reshape(-1)
+    t = {k: torch.as_tensor(np.asarray(v), device=dev) for k, v in tab.items()}
+    for p in (1, 2):
+        t[f"off{p}"] = ((t[f"pi{p}"] * Hp + t[f"u{p}"]) * Wp + t[f"v{p}"]).long()
+    reach = max(int(t["off1"].max()), int(t["off2"].max())) + int(grid[-1])
+    if reach >= flat.shape[1] or min(int(t["off1"].min()), int(t["off2"].min())) < 0:
+        raise ValueError("dense0 ms filter: tables read outside the image")
+    K = t["th"].shape[0]
+    n = ny * nx
+    score = torch.zeros((B, n), dtype=torch.float32, device=dev)
+    alive = torch.ones((B, n), dtype=torch.bool, device=dev)
+    nvis = torch.zeros((B, n), dtype=torch.int32, device=dev)
+    for c0 in range(0, K, MS_CART_CHUNK):
+        c1 = min(c0 + MS_CART_CHUNK, K)
+        C = c1 - c0
+
+        def pix(p):
+            # [B, C, node_n, 4, n] crops -> [B, C, node_n, n] resized pixels
+            crops = flat[:, t[f"off{p}"][c0:c1].reshape(-1, 1) + grid].reshape(
+                B, C, node_n, 4, n
+            )
+            ax0 = t[f"ax0_{p}"][c0:c1, :, None]
+            ax1 = t[f"ax1_{p}"][c0:c1, :, None]
+            t0 = ax0 * crops[:, :, :, 0] + ax1 * crops[:, :, :, 1]
+            t1 = ax0 * crops[:, :, :, 2] + ax1 * crops[:, :, :, 3]
+            return cv_fixed_combine(
+                t0, t1, t[f"by0_{p}"][c0:c1, :, None], t[f"by1_{p}"][c0:c1, :, None]
+            )
+
+        bits = (pix(1) - pix(2) > t["th"][c0:c1, :, None]).to(torch.int64)
+        node = torch.zeros((B, C, 1, n), dtype=torch.int64, device=dev)
+        for _ in range(depth - 1):
+            node = 2 * node + 1 + bits.gather(2, node)
+        leaf = node[:, :, 0] - node_n  # [B, C, n]
+        b = t["ls"][torch.arange(c0, c1, device=dev)[None, :, None], leaf]
+        for k in range(C):
+            s_new = (score + b[:, k] - t["mean"][c0 + k]) / t["std"][c0 + k]
+            score = torch.where(alive, s_new, score)
+            nvis = nvis + alive.to(torch.int32)
+            alive = alive & (score >= t["cth"][c0 + k])
+    return tuple(o.reshape(B, ny, nx) for o in (score, alive, nvis))
+
+
+def stage0_filter_all_scales_ms(
+    img: Tensor,  # [B, H, W] uint8
+    tabs: Sequence[Dict[str, np.ndarray]],  # node_tables_ms per scan grid
+    *,
+    meta: Sequence[Tuple[int, int, int, int]],  # (win, step, ny, nx)
+    depth: int,
+):
+    """Full stage-0 of a multi-scale model over every scan grid of a packed
+    method-0 pyramid (the JAX package's `stage0_filter_all_scales_ms`):
+    (score [B, n], alive [B, n], nvis [B, n]) flat in window order, grid by
+    grid.  Plain PyTorch on the image's device (`scale_filter_ms_reference`);
+    the JAX package runs it in XLA, with no Pallas kernel."""
+    B = img.shape[0]
+    parts = [[], [], []]
+    for (_, step, ny, nx), tab in zip(meta, tabs):
+        out = scale_filter_ms_reference(img, tab, step=step, ny=ny, nx=nx, depth=depth)
+        for i, o in enumerate(out):
+            parts[i].append(o.reshape(B, ny * nx))
+    return tuple(torch.cat(p, dim=1) for p in parts)
 
 
 def kernel_nodes(tabi: Tensor, *, step: int, W: int, depth: int) -> Tensor:

@@ -1,7 +1,9 @@
-"""Fused detection pipeline for single-scale models on the C-API path.
+"""Fused detection pipeline for single-scale models.
 
-PyTorch counterpart of the JAX package's `make_fused_fn`: one call runs the
-whole cascade over a batch of images,
+PyTorch counterpart of the JAX package's `make_fused_fn`, and of the gather
+groups of its `make_fused_fn2` (banded canvases: the C++ path's method-0
+pyramids, with a canvas origin per scan grid).  One call runs the whole
+cascade over a batch of images,
 
   1. the dense stage-0 filter over every scan scale (ops/dense0.py);
   2. survivor compaction;
@@ -13,7 +15,10 @@ whole cascade over a batch of images,
 Compaction has dynamic sizes (torch.nonzero), so `counts` are the true
 survivor counts and there are no lane budgets to overflow.  Every
 per-window float sequence (score chain, exact sequential regression) is
-the JAX package's, so results are bit-identical.
+the JAX package's, so results are bit-identical.  The final lanes are in
+ascending flat window id, as in both JAX programs under their default
+single gather group: per image, the C++ path's NMS breaks ties in that
+order.
 """
 
 from __future__ import annotations
@@ -63,10 +68,17 @@ def run_fused(
     rounding: bool = False,
     s0_lbf: bool = True,
     prepared: Optional[D0.ImageTables] = None,
+    origins: Optional[Sequence[Tuple[int, int]]] = None,
 ) -> Dict[str, Tensor]:
     """Run the cascade over one batch.  `prepared` takes the dense filter's
     tables of this geometry (D0.prepare_image), which the caller keeps with
-    its plan.  Returns
+    its plan.
+
+    `origins` gives each scan grid a canvas origin (y0, x0) (banded scans,
+    make_fused_fn2): `xywin` and the tables are in canvas coordinates, and
+    a window is valid where it fits its band's content rectangle.  `dims`
+    may then be [B, S, 2], one (w, h) per band, band-local; [B, 2] dims
+    apply to every band.  Returns
 
       sel        [m] flat window id (b*n + w) of each final lane
       score, shape, alive, nvis   per final lane
@@ -84,11 +96,23 @@ def run_fused(
     score_d, alive_d, nvis_d = dense[:3]
 
     # per-image validity on the canonical grid: the window must fit inside
-    # the image's own dims
+    # the image's own dims (its band's content, in band-local coordinates)
     x = xywin[:, 0][None, :]
     y = xywin[:, 1][None, :]
     win = xywin[:, 2][None, :]
-    ok = (x <= dims[:, 0:1] - win) & (y <= dims[:, 1:2] - win)
+    wl, hl = dims[:, 0:1], dims[:, 1:2]
+    if origins is not None or dims.dim() == 3:
+        sidx = torch.repeat_interleave(
+            torch.arange(len(meta), device=imgs.device),
+            torch.tensor([ny * nx for _, _, ny, nx in meta], device=imgs.device),
+        )
+        if origins is not None:
+            org = torch.tensor(origins, dtype=torch.int32, device=imgs.device)
+            x = x - org[sidx, 1][None, :]
+            y = y - org[sidx, 0][None, :]
+        if dims.dim() == 3:
+            wl, hl = dims[:, sidx, 0], dims[:, sidx, 1]
+    ok = (x <= wl - win) & (y <= hl - win)
     alive_flat = (alive_d & ok).reshape(-1)
     # per-image cart-visit bank (exact DetectionStatistic per image)
     nvis_img = torch.where(ok, nvis_d, 0).sum(1, dtype=torch.int32)

@@ -1,11 +1,18 @@
-"""Non-maximum suppression of the C library (c/jda.c:237-316).
+"""Non-maximum suppression, reproducing both reference variants.
 
 The survivor set after the cascade is tiny (tens of boxes), so NMS runs on
 the host in numpy.  Its output order is part of the API contract with the
-reference: boxes are squares (x, y, size); score-descending greedy
-suppression with IoU > overlap (strict); the output keeps the original
-candidate order (the final move loop iterates i = 0..n-1 over the input
-order, c/jda.c:295-301).
+reference, so both variants match it exactly:
+
+  * `nms_c`: the C library's greedy NMS (c/jda.c:237-316).  Boxes are
+    squares (x, y, size); score-descending greedy suppression with
+    IoU > overlap (strict); the output keeps the original candidate order
+    (the final move loop iterates i = 0..n-1 over the input order,
+    c/jda.c:295-301).
+  * `nms_cpp`: the C++ multimap variant (src/jda/cascador.cpp:387-429) used
+    by `jda test` / `jda fddb`; rectangles may be non-square; the output is
+    in pick order (score descending), and the suppression loop also erases
+    the current maximum itself.
 """
 
 from __future__ import annotations
@@ -42,3 +49,36 @@ def nms_c(bboxes: np.ndarray, scores: np.ndarray, overlap: float = 0.3) -> np.nd
         ov = inter / (area[k1] + area[rest] - w * h).astype(np.float32)
         flag[rest[ov > overlap]] = False
     return np.flatnonzero(flag)
+
+
+def nms_cpp(rects: np.ndarray, scores: np.ndarray, overlap: float = 0.3) -> np.ndarray:
+    """C++ multimap NMS; rects [n,4] = (x, y, w, h); returns picked indices
+    in score-descending pick order (cascador.cpp:387-429)."""
+    n = len(scores)
+    if n == 0:
+        return np.zeros((0,), np.int64)
+    x = rects[:, 0].astype(np.float64)
+    y = rects[:, 1].astype(np.float64)
+    w = rects[:, 2].astype(np.float64)
+    h = rects[:, 3].astype(np.float64)
+    areas = w * h
+    # std::multimap orders by key ascending; equal scores keep insertion
+    # order, and map.rbegin() picks the *last* inserted among maxima
+    order = list(np.argsort(scores, kind="stable"))
+    picked = []
+    while order:
+        last = order[-1]
+        picked.append(last)
+        survivors = []
+        for idx in order:
+            x1 = max(x[idx], x[last])
+            y1 = max(y[idx], y[last])
+            x2 = min(x[idx] + w[idx], x[last] + w[last])
+            y2 = min(y[idx] + h[idx], y[last] + h[last])
+            ww = max(0.0, x2 - x1)
+            hh = max(0.0, y2 - y1)
+            ov = ww * hh / (areas[idx] + areas[last] - ww * hh)
+            if ov <= overlap:
+                survivors.append(idx)
+        order = survivors
+    return np.asarray(picked, np.int64)

@@ -12,10 +12,16 @@ image on the host, which is cheap.
 `pyramid_c` builds the o/h/q triple exactly as jdaDetect does
 (c/jda.c:443-457): h = resize to (int(w/sqrt2), int(h/sqrt2)), q = resize to
 (w//2, h//2), both from the original.
+
+`cv2_resize` is the port's model of `cv2.resize(img, (w, h))` (8-bit,
+INTER_LINEAR), bit-exact on whole-image shrinks as well as on patches; the
+C++-semantics path (cascador.py) calls it wherever the JAX package calls
+OpenCV, so the port needs no OpenCV.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Tuple
 
@@ -154,6 +160,63 @@ def resize_bilinear_cv_exact(img: np.ndarray, w: int, h: int) -> np.ndarray:
     r_s0, r_s1, r_c0, r_c1 = cv_linear_taps_fixed(img.shape[0], h)
     t = img[:, c_s0].astype(np.int32) * c_c0 + img[:, c_s1].astype(np.int32) * c_c1
     out = cv_fixed_combine(t[r_s0], t[r_s1], r_c0[:, None], r_c1[:, None])
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+@functools.lru_cache(maxsize=512)
+def cv2_taps(
+    src_n: int, dst_n: int, clamp_frac: bool
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Fixed-point taps (s0, s1, c0, c1) of one axis of OpenCV's 8-bit
+    INTER_LINEAR resize, computed as resize.cpp computes them: scale =
+    1 / (dst / src) in double, the source coordinate
+    fx = (float)((i + 0.5) * scale - 0.5), sx = floor(fx), fx -= sx, then
+    c0 = cvRound((1.f - fx) * 2048) and c1 = cvRound(fx * 2048) in float32
+    (cvRound rounds half to even).
+
+    Along x (`clamp_frac`) a tap left of the image or on its last pixel
+    takes that pixel alone (fx = 0); along y the coefficients keep fx and
+    only the two source rows are clamped to the image.  The arrays are
+    read-only: they are cached."""
+    scale = 1.0 / (dst_n / src_n)
+    f = ((np.arange(dst_n, dtype=np.float64) + 0.5) * scale - 0.5).astype(np.float32)
+    s0 = np.floor(f).astype(np.int64)
+    f = f - s0.astype(np.float32)
+    if clamp_frac:
+        f = np.where((s0 < 0) | (s0 >= src_n - 1), np.float32(0), f)
+        s0 = np.clip(s0, 0, src_n - 1)
+        s1 = np.minimum(s0 + 1, src_n - 1)
+    else:
+        s0, s1 = np.clip(s0, 0, src_n - 1), np.clip(s0 + 1, 0, src_n - 1)
+    one, coef = np.float32(1.0), np.float32(2048.0)
+    c0 = np.rint((one - f) * coef).astype(np.int32)
+    c1 = np.rint(f * coef).astype(np.int32)
+    out = (s0.astype(np.intp), s1.astype(np.intp), c0, c1)
+    for a in out:
+        a.flags.writeable = False
+    return out
+
+
+def cv2_resize(img: np.ndarray, w: int, h: int) -> np.ndarray:
+    """`cv2.resize(img, (w, h))` for uint8 images, INTER_LINEAR, bit for bit.
+
+    The horizontal pass accumulates short coefficients (scale 2^11) into
+    int32, the vertical pass is `cv_fixed_combine`, as in
+    `resize_bilinear_cv_exact`; the taps differ from that function's: they
+    are OpenCV's float32 source coordinates (`cv2_taps`), where
+    `cv_linear_taps_fixed` maps in float64 and is off by one on about 0.2 %
+    of a whole-image shrink's pixels.  `img` is [..., H, W]: the last two
+    axes are resized, so a stack of patches takes one call."""
+    if img.dtype != np.uint8 or img.ndim < 2:
+        raise ValueError("cv2_resize: img must be a uint8 array of at least 2 axes")
+    if w < 1 or h < 1:
+        raise ValueError(f"cv2_resize: empty output size {(w, h)}")
+    xs0, xs1, xc0, xc1 = cv2_taps(img.shape[-1], w, True)
+    ys0, ys1, yc0, yc1 = cv2_taps(img.shape[-2], h, False)
+    t = img[..., xs0].astype(np.int32) * xc0 + img[..., xs1].astype(np.int32) * xc1
+    out = cv_fixed_combine(
+        t[..., ys0, :], t[..., ys1, :], yc0[:, None], yc1[:, None]
+    )
     return np.clip(out, 0, 255).astype(np.uint8)
 
 

@@ -21,6 +21,12 @@ with the realistic drop profile; scale 1.25, min 24, th -0.5) it prints
     `dense0_image` call, then cascade_full on the survivors), and of a
     multi-scale model of the same width on one VGA image (pyramid,
     prefilter and stage loop of `_run_batch`);
+  * the same two readings for the C++-semantics path (CppDetector, the
+    default Config) with the trained flagship model
+    (models/flagship_synth.model) on VGA scenes with planted faces
+    (chip_smoke.make_scene): detect_batch with method 1 at B=8, and one
+    detect call per image with method 1 and with method 0; and a
+    multi-scale model's method 0 (the plain dense multi-scale filter);
   * the card, as nvidia-smi gives its name and power limit.
 """
 
@@ -30,25 +36,17 @@ import subprocess
 import sys
 import time
 
-import numpy as np
-
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from chip_smoke import make_image, make_scene  # noqa: E402
 
 KW = dict(scale=1.25, min_size=24, max_size=-1, th=-0.5)
 
 
-def make_image(h, w, seed):
-    rng = np.random.default_rng(seed)
-    base = rng.integers(0, 256, (h // 8 + 2, w // 8 + 2)).astype(np.float32)
-    img = np.kron(base, np.ones((8, 8), np.float32))[:h, :w]
-    noise = rng.normal(0, 12, (h, w))
-    return np.clip(img + noise, 0, 255).astype(np.uint8)
-
-
-def phase_times(det, imgs, unfused=False):
-    """Synchronised host time per instrumented phase of one batch (fused)
-    or of one `detect` call per image (non-fused)."""
-    import torch
+def patches_for(kind):
+    """(module or class, attribute, label) of the phases timed for a cell
+    kind: "fused", "unfused" or "cpp"."""
+    from jda_tpu_torch.cascador import CppDetector
     from jda_tpu_torch.detect import Detector
     from jda_tpu_torch.ops import cascade as C
     from jda_tpu_torch.ops import dense0 as D0
@@ -56,9 +54,32 @@ def phase_times(det, imgs, unfused=False):
     from jda_tpu_torch.ops import nms as NMS
     from jda_tpu_torch.ops import resize as R
 
+    if kind == "cpp":
+        return [
+            (R, "cv2_resize", "cv2_resize: pyramid, planes (host)"),
+            (CppDetector, "_patch_rows", "window patches (host, multi-scale)"),
+            (D0, "stage0_filter_all_scales", "dense stage-0 (dense0_filter)"),
+            (Detector, "_dense_filter", "dense stage-0 (dense0_image)"),
+            (D0, "stage0_filter_all_scales_ms", "dense stage-0 multi-scale (plain)"),
+            (F, "compact", "compaction"),
+            (C, "carts_descend", "tree descent"),
+            (C, "score_chain", "score chain"),
+            (C, "apply_regression", "exact regression"),
+            (Detector, "_upload", "upload"),
+            (NMS, "nms_cpp", "NMS (host)"),
+        ]
     DT = sys.modules[Detector.__module__]
-    acc = collections.OrderedDict()
-    patches = [
+    if kind == "unfused":
+        return [
+            (R, "pyramid_c", "pyramid (host)"),
+            (DT, "window_geometry", "window geometry (host)"),
+            (Detector, "_dense_filter", "dense stage-0 filter (dense0_image)"),
+            (C, "carts_descend", "tree descent"),
+            (C, "score_chain", "score chain"),
+            (C, "apply_regression", "exact regression"),
+            (NMS, "nms_c", "NMS (host)"),
+        ]
+    return [
         (D0, "stage0_filter_all_scales", "dense stage-0 filter"),
         (F, "compact", "compaction"),
         (F, "unpack_lbf", "stage-0 leaf unpack"),
@@ -68,18 +89,16 @@ def phase_times(det, imgs, unfused=False):
         (Detector, "_upload", "upload"),
         (Detector, "_harvest_batch", "harvest + NMS (host)"),
     ]
-    if unfused:
-        patches = [
-            (R, "pyramid_c", "pyramid (host)"),
-            (DT, "window_geometry", "window geometry (host)"),
-            (Detector, "_dense_filter", "dense stage-0 filter (dense0_image)"),
-            (C, "carts_descend", "tree descent"),
-            (C, "score_chain", "score chain"),
-            (C, "apply_regression", "exact regression"),
-            (NMS, "nms_c", "NMS (host)"),
-        ]
+
+
+def phase_times(run, kind):
+    """Synchronised host time per instrumented phase of one call of `run`
+    (a fused batch, or one `detect` call per image)."""
+    import torch
+
+    acc = collections.OrderedDict()
     saved = []
-    for mod, name, label in patches:
+    for mod, name, label in patches_for(kind):
         fn = getattr(mod, name)
         saved.append((mod, name, fn))
 
@@ -95,7 +114,7 @@ def phase_times(det, imgs, unfused=False):
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        run(det, imgs, unfused)
+        run()
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
     finally:
@@ -104,13 +123,7 @@ def phase_times(det, imgs, unfused=False):
     return total, acc
 
 
-def run(det, imgs, unfused):
-    if unfused:
-        return [det.detect(g, **KW) for g in imgs]
-    return det.detect_batch(imgs, **KW)
-
-
-def device_busy(det, imgs, unfused=False):
+def device_busy(run):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -120,7 +133,7 @@ def device_busy(det, imgs, unfused=False):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run(det, imgs, unfused)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy_us = 0.0
@@ -140,6 +153,7 @@ def main():
         print("profile_torch_detect: no CUDA device", file=sys.stderr)
         return 2
     import jda_tpu_torch as jt
+    from jda_tpu_torch.cascador import CppDetector
 
     model = jt.synthetic_model(
         T=5, K=540, landmark_n=27, seed=7,
@@ -150,27 +164,49 @@ def main():
         T=5, K=540, landmark_n=27, seed=7, multi_scale=True,
         drop_profile=jt.realistic_drop_profile(5, 540),
     ))
-    cells = (
-        ("VGA B=16", det, (480, 640, 16, 3), False),
-        ("1080p B=4", det, (1080, 1920, 4, 31), False),
-        ("non-fused VGA, 1 image", det, (480, 640, 1, 3), True),
-        ("non-fused 1080p, 1 frame", det, (1080, 1920, 1, 31), True),
-        ("non-fused multi-scale VGA, 1 image", ms_det, (480, 640, 1, 3), True),
-    )
-    for label, d, (h, w, B, seed), unfused in cells:
-        os.environ["JDA_TPU_FUSED"] = "0" if unfused else "1"
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    flag = jt.load_model(os.path.join(root, "models", "flagship_synth.model"))
+    cpp1 = CppDetector(flag, jt.Config(fddb_detect_method=1))
+    cpp0 = CppDetector(flag, jt.Config(fddb_detect_method=0))
+    cpp_ms = CppDetector(ms_det.params, jt.Config(fddb_detect_method=0))
+    scenes = [make_scene(480, 640, seed=200 + i)[0] for i in range(8)]
+
+    def c_api(d, h, w, B, seed, unfused):
         imgs = [make_image(h, w, seed + i) for i in range(B)]
-        run(d, imgs, unfused)  # warm
+        if unfused:
+            return lambda: [d.detect(g, **KW) for g in imgs]
+        return lambda: d.detect_batch(imgs, **KW)
+
+    cells = (
+        ("VGA B=16", det, c_api(det, 480, 640, 16, 3, False), "fused"),
+        ("1080p B=4", det, c_api(det, 1080, 1920, 4, 31, False), "fused"),
+        ("non-fused VGA, 1 image", det, c_api(det, 480, 640, 1, 3, True), "unfused"),
+        ("non-fused 1080p, 1 frame", det, c_api(det, 1080, 1920, 1, 31, True), "unfused"),
+        ("non-fused multi-scale VGA, 1 image", ms_det,
+         c_api(ms_det, 480, 640, 1, 3, True), "unfused"),
+        ("C++ method 1, detect_batch VGA B=8", cpp1.det,
+         lambda: cpp1.detect_batch(scenes), "cpp"),
+        ("C++ method 1, detect, 1 VGA image", cpp1.det,
+         lambda: cpp1.detect(scenes[0]), "cpp"),
+        ("C++ method 0, detect, 1 VGA image", cpp0.det,
+         lambda: cpp0.detect(scenes[0]), "cpp"),
+        ("C++ multi-scale method 0, detect, 1 VGA image", cpp_ms.det,
+         lambda: cpp_ms.detect(scenes[0]), "cpp"),
+    )
+    for label, d, run, kind in cells:
+        os.environ["JDA_TPU_FUSED"] = "0" if kind == "unfused" else "1"
+        d.last_stats = {}
+        run()  # warm
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        run(d, imgs, unfused)
+        run()
         torch.cuda.synchronize()
         plain = time.perf_counter() - t0
-        total, acc = phase_times(d, imgs, unfused)
-        wall, busy, kernels, dense = device_busy(d, imgs, unfused)
+        total, acc = phase_times(run, kind)
+        wall, busy, kernels, dense = device_busy(run)
         print(f"{label}: {plain * 1e3:.1f} ms unsynchronised, "
               f"{total * 1e3:.1f} ms with per-phase syncs; counts "
-              f"{d.last_stats.get('counts') if not unfused else 'n/a'}")
+              f"{d.last_stats.get('counts', 'n/a')}")
         for k, v in acc.items():
             print(f"  {k:36s} {v * 1e3:9.1f} ms  {100 * v / total:5.1f} %")
         print(f"  {'other (host glue, copies)':36s} {(total - sum(acc.values())) * 1e3:9.1f} ms")

@@ -11,6 +11,8 @@ round-to-nearest in the plain version's order, and the survivor tail runs
 the same PyTorch ops on both devices.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -332,3 +334,132 @@ def test_multi_scale_detector_on_card_matches_cpu(cuda):
     np.testing.assert_array_equal(want.bboxes, got.bboxes)
     np.testing.assert_array_equal(want.scores, got.scores)
     np.testing.assert_array_equal(want.shapes, got.shapes)
+
+
+# -- the C++-semantics path (CppDetector, run_fddb) ------------------------------
+
+CPP_CFG = dict(
+    T=2, K=24, landmark_n=5, tree_depth=4, img_o_size=32, img_h_size=24,
+    img_q_size=16, fddb_minimum_size=20, fddb_step=5, fddb_scale_factor=1.3,
+    fddb_overlap=0.3, fddb_nms=True, left_pupils=(0,), right_pupils=(1,),
+)
+
+
+@pytest.fixture
+def cpp_model():
+    return jt.synthetic_model(T=2, K=24, landmark_n=5, seed=11,
+                              drop_profile=np.full(48, 0.05))
+
+
+def _same_cpp(a, b):
+    for x, y in zip(a[:3], b[:3]):
+        assert x.shape == y.shape
+        np.testing.assert_array_equal(x, y)
+    assert a[3] == b[3]
+
+
+def test_kernels_on_cpp_tables_match_plain(cuda, cpp_model):
+    """Rounding tables on the method-1 ladder (windows from 20 px at a fixed
+    step of 5) at B=2, and shifted tables on a banded method-0 canvas:
+    `dense0_filter` bit-equal to the plain version with and without leaf
+    words, `dense0_image` on the ladder of one image too."""
+    from jda_tpu_torch.cascador import CppDetector
+
+    imgs = [_img(120, 160, 21), _img(120, 160, 22)]
+    det1 = CppDetector(cpp_model, jt.Config(fddb_detect_method=1, **CPP_CFG))
+    det0 = CppDetector(cpp_model, jt.Config(fddb_detect_method=0, **CPP_CFG))
+    p1 = det1._m1_plan(120, 160)
+    p0 = det0._m0_plan(120, 160)
+    assert p1["scales"][0][:2] == (20, 5) and len(p0["scales"]) > 2
+    canvas = np.zeros((p0["Hc"], p0["Wc"]), np.uint8)
+    for (y0, _, _), (lv, _) in zip(p0["m0_layout"], det0._pyramid_m0(imgs[0])):
+        canvas[y0 : y0 + lv.shape[0], : lv.shape[1]] = lv
+    for img, plan in ((np.stack(imgs), p1), (canvas[None], p0)):
+        img = torch.from_numpy(img).to(cuda)
+        want = [D0.scale_filter_reference(img, ti, tf, step=s, ny=ny, nx=nx, depth=4,
+                                          emit_lbf=True)
+                for (_, s, ny, nx), (ti, tf) in zip(plan["scales"], plan["tabs"])]
+        want = [torch.cat([w[i].reshape(img.shape[0], -1, *w[i].shape[3:]) for w in want],
+                          dim=1) for i in range(4)]
+        for emit_lbf in (False, True):
+            before = D0.scale_filter.launches
+            got = D0.stage0_filter_all_scales(img, plan["tabs"], meta=plan["scales"],
+                                              depth=4, emit_lbf=emit_lbf)
+            torch.cuda.synchronize()
+            assert D0.scale_filter.launches == before + 2
+            for a, b in zip(got[:3], want[:3]):
+                assert torch.equal(a, b)
+            if emit_lbf:
+                assert torch.equal(got[3][want[1]], want[3][want[1]])
+        assert 0 < int(want[1].sum()) < want[1].numel()
+    img = torch.from_numpy(imgs[0]).to(cuda)
+    got = D0.stage0_filter_image(img, p1["tabs"], meta=p1["scales"], depth=4)
+    want = D0.stage0_filter_image_reference(img, p1["tabs"], meta=p1["scales"], depth=4)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("method", [1, 0])
+def test_cpp_detector_on_card_matches_cpu(cuda, cpp_model, method):
+    """CppDetector on the card: detect (method 1: one `dense0_image` call per
+    image; method 0: one `dense0_filter` call) and detect_batch (one
+    `dense0_filter` call) bit-equal to the same detector on the CPU."""
+    from jda_tpu_torch.cascador import CppDetector
+
+    cfg = jt.Config(fddb_detect_method=method, **CPP_CFG)
+    gdet, cdet = CppDetector(cpp_model, cfg), CppDetector(cpp_model, cfg, device="cpu")
+    grays = [_img(120, 160, 23), _img(96, 128, 24)]
+    before = (D0.scale_filter.launches, D0.stage0_filter_image.launches)
+    got = [gdet.detect(g) for g in grays]
+    torch.cuda.synchronize()
+    after = (D0.scale_filter.launches, D0.stage0_filter_image.launches)
+    assert (after[0] - before[0], after[1] - before[1]) == ((0, 4) if method else (4, 0))
+    batch = gdet.detect_batch(grays)
+    assert D0.scale_filter.launches == after[0] + 2
+    want = [cdet.detect(g) for g in grays]
+    assert sum(len(w[0]) for w in want) > 0, "degenerate fixture"
+    for a, b, c in zip(want, got, batch):
+        _same_cpp(a, b)
+        _same_cpp(a, c)
+
+
+def test_cpp_multi_scale_and_stp_on_card_match_cpu(cuda):
+    """Method 0 of a multi-scale model (the plain dense multi-scale filter,
+    no kernel) and method 1 with the similarity transform, on the card,
+    bit-equal to the CPU port."""
+    from jda_tpu_torch.cascador import CppDetector
+
+    m = jt.synthetic_model(T=2, K=16, landmark_n=5, seed=13, multi_scale=True,
+                           drop_profile=np.full(32, 0.05))
+    img = _img(80, 100, 25)
+    for kw in (dict(fddb_detect_method=0),
+               dict(fddb_detect_method=1, with_similarity_transform=True)):
+        cfg = jt.Config(**dict(CPP_CFG, K=16, **kw))
+        gdet = CppDetector(m, cfg)
+        if kw["fddb_detect_method"] == 0:
+            assert gdet._m0_dense_ms_applicable()
+        want = CppDetector(m, cfg, device="cpu").detect(img)
+        assert len(want[0]) > 0, "degenerate fixture"
+        _same_cpp(want, gdet.detect(img))
+
+
+def test_run_fddb_on_card_through_imread(cuda, cpp_model, tmp_path):
+    """run_fddb on the card with images fed through imread=: the fold file
+    equals the CPU run's byte for byte."""
+    from jda_tpu_torch.fddb import run_fddb
+
+    os.makedirs(tmp_path / "FDDB-folds")
+    names = [f"s/img_{i}" for i in range(3)]
+    (tmp_path / "FDDB-folds" / "FDDB-fold-01.txt").write_text("\n".join(names) + "\n")
+    by_path = {str(tmp_path / "images" / (n + ".jpg")): _img(96, 128, 30 + i)
+               for i, n in enumerate(names)}
+    for method in (1, 0):
+        cfg = jt.Config(fddb_detect_method=method, fddb_dir=str(tmp_path), **CPP_CFG)
+        out = []
+        for device in (None, "cpu"):
+            d = tmp_path / f"out{method}{device}"
+            stats = run_fddb(cpp_model, cfg, folds=[1], out_dir=str(d),
+                             imread=by_path.get, device=device)
+            assert stats["images"] == 3
+            out.append((d / "fold-01-out.txt").read_bytes())
+        assert out[0] == out[1]

@@ -305,10 +305,13 @@ def test_batch_and_stream_fall_back_image_by_image(monkeypatch, pair):
         _same(j, b)
 
 
-def test_unported_branches_raise(pair):
+def test_unported_branches_raise(pair, monkeypatch):
     m, grays, jres, jraw, tdet, imgs, dims = pair
     with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
         tdet.detect_batch(grays, mesh=object())
-    flat, geom, _ = _geometry_batch(grays[0], single_scale=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-        tdet._run_batch(torch.from_numpy(flat), geom, 4, with_stp=True)
+    # the canvas-bucket tail of banded plans (the JAX package's mxu_tail.py)
+    monkeypatch.setenv("JDA_TPU_BUCKETS", "default")
+    z = np.zeros(1, np.int32)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
+        tdet._plan_windows(("t",), 64, 96, z, z, z + 24, [(24, 2, 1, 1)],
+                           rounding=True, origins=[(0, 0)])

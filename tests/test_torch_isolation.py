@@ -16,7 +16,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_import_pulls_in_no_jax():
     code = (
-        "import jda_tpu_torch, jda_tpu_torch.native, jda_tpu_torch.ops.fused, sys; "
+        "import jda_tpu_torch, jda_tpu_torch.native, jda_tpu_torch.ops.fused, "
+        "jda_tpu_torch.cascador, jda_tpu_torch.fddb, sys; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
         "'jda_tpu.')) or m == 'jda_tpu']; "
         "assert not bad, bad"
@@ -44,3 +45,12 @@ def test_default_device_without_cuda_raises(monkeypatch):
     m = jda_tpu_torch.synthetic_model(T=1, K=8, landmark_n=9, seed=0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         jda_tpu_torch.Detector(m)
+
+
+def test_cpp_detector_default_device_without_cuda_raises(monkeypatch):
+    from jda_tpu_torch.cascador import CppDetector
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    m = jda_tpu_torch.synthetic_model(T=1, K=8, landmark_n=9, seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CppDetector(m, jda_tpu_torch.Config(T=1, K=8, landmark_n=9))

@@ -2,10 +2,15 @@
 
 Both are numpy on the host and the port keeps its own copy, so every
 function is held bit-equal (no tolerance) on random uint8 images of odd and
-even sizes."""
+even sizes.  `cv2_resize`, the port's own model of cv2.resize, is held
+bit-equal to the installed OpenCV (skipped without it)."""
+
+import math
 
 import numpy as np
 import pytest
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from jda_tpu.detect import enumerate_windows as j_enumerate_windows
 from jda_tpu.detect import window_geometry as j_window_geometry
@@ -79,3 +84,68 @@ def test_window_geometry_bit_equal_on_full_ladder(hw):
     for k in jg:
         assert jg[k].dtype == tg[k].dtype and jg[k].shape == tg[k].shape, k
         np.testing.assert_array_equal(jg[k], tg[k], err_msg=k)
+
+
+# -- cv2_resize: the port's model of cv2.resize, held against OpenCV itself --
+
+
+def _cv2():
+    return pytest.importorskip("cv2")
+
+
+@pytest.mark.parametrize("hw", [(480, 640), (512, 640), (1080, 1920)])
+def test_cv2_resize_exact_on_shrink_chains(hw):
+    """The method-0 pyramid chain at 1/1.3 (each level a resize of the one
+    before, down to 20 px) and the method-1 planes at 1/sqrt(2) and 1/2:
+    every pixel equal to OpenCV's, where resize_bilinear_cv_exact is not."""
+    cv2 = _cv2()
+    H, W = hw
+    img = _img(H, W, seed=H)
+    level, levels = img, 0
+    while min(level.shape) >= 20:
+        nw, nh = int(level.shape[1] / 1.3), int(level.shape[0] / 1.3)
+        want = cv2.resize(level, (nw, nh))
+        np.testing.assert_array_equal(TR.cv2_resize(level, nw, nh), want)
+        level, levels = want, levels + 1
+    assert levels >= 8
+    for w, h in ((int(W / math.sqrt(2)), int(H / math.sqrt(2))), (W // 2, H // 2)):
+        want = cv2.resize(img, (w, h))
+        got = TR.cv2_resize(img, w, h)
+        assert got.dtype == np.uint8 and got.shape == (h, w)
+        np.testing.assert_array_equal(got, want)
+    w, h = int(W / math.sqrt(2)), int(H / math.sqrt(2))
+    assert (TR.resize_bilinear_cv_exact(img, w, h) != cv2.resize(img, (w, h))).any()
+
+
+@pytest.mark.parametrize("d", [48, 36, 24])
+def test_cv2_resize_exact_on_patches(d):
+    """48 -> 48/36/24, the method-0 patch shapes, one patch and a stack of
+    them in one call."""
+    cv2 = _cv2()
+    rois = np.stack([_img(48, 48, seed=s) for s in range(5)])
+    stack = TR.cv2_resize(rois, d, d)
+    assert stack.shape == (5, d, d)
+    for roi, got in zip(rois, stack):
+        np.testing.assert_array_equal(got, cv2.resize(roi, (d, d)))
+        np.testing.assert_array_equal(TR.cv2_resize(roi, d, d), got)
+
+
+@settings(max_examples=40, deadline=None, derandomize=True)
+@given(
+    h=st.integers(24, 1920),
+    w=st.integers(24, 1920),
+    ratio=st.floats(1.0, 2.5),
+    seed=st.integers(0, 2**16),
+)
+def test_cv2_resize_exact_on_random_shrinks(h, w, ratio, seed):
+    cv2 = _cv2()
+    img = np.random.default_rng(seed).integers(0, 256, (h, w), dtype=np.uint8)
+    dw, dh = max(1, int(w / ratio)), max(1, int(h / ratio))
+    np.testing.assert_array_equal(TR.cv2_resize(img, dw, dh), cv2.resize(img, (dw, dh)))
+
+
+def test_cv2_resize_rejects_bad_input():
+    with pytest.raises(ValueError):
+        TR.cv2_resize(np.zeros((8, 8), np.float32), 4, 4)
+    with pytest.raises(ValueError):
+        TR.cv2_resize(np.zeros((8, 8), np.uint8), 0, 4)

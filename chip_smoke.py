@@ -19,8 +19,8 @@ Phases, each fatal on failure:
      identical boxes, scores within 2e-4, shapes within 2e-3;
   5. a 1080p stream of 4 frames at B=4;
   6. `dense0_filter` per VGA batch and per 1080p batch (CUDA events) beside
-     its plain version, its bound and the 14 per-scale calls that compute
-     the same; the time of its head and survivor phases, the survivor
+     its plain version (both batches), its bound and the 14 per-scale calls
+     that compute the same; the time of its head and survivor phases, the survivor
      queue's length, the share of windows alive after 8, 16, 32 and 64
      carts, and for both batches the time at each of those head lengths,
      the outputs held bit-equal to those of the head length in use;
@@ -66,7 +66,24 @@ Phases, each fatal on failure:
      to the CPU port;
  15. run_fddb over a temporary two-fold FDDB folder of 16 scenes fed
      through imread=, for both methods: img/s, windows and mean reject
-     carts, fold 1 equal to phase 13's batch.
+     carts, fold 1 equal to phase 13's batch;
+ 16. training at the flagship geometry (scripts/train_flagship.py:453-484:
+     K=540, 27 landmarks, depth 4, F=2,000, patches 48/36/24, seed 11; cut
+     to T=1): Trainer.train() from empty_model with its cursor at (0, 531),
+     so the stage's last 8 carts are trained, negatives mined by the device
+     miner, scores normalised at cart 540 and the global regression solved
+     at full width (LBF 4,320 -> 54), on 1,024 faces of `train_corpus`
+     and 12 `make_image` backgrounds, on the card and on the CPU: every
+     model field but W equal, W within W_REL_TOL of max |W|, live masks,
+     weights, mined rows and the random stream equal;
+ 17. the same on the flagship's 16,384 faces on the card, timed: seconds
+     per cart, split search per node, one cart step under torch.profiler
+     (device events, idle share), the first mining event (windows screened
+     per second, host rebuild and revalidation), gen_lbf and the ridge
+     solve, mean error before and after the regression;
+ 18. the model of phase 17 saved as doubles and loaded, through
+     CppDetector.detect_batch with method 1 on 8 `make_scene` images: two
+     `dense0_filter` launches, bit-equal to the same on the CPU.
 
 The last lines are the card (nvidia-smi name and power limit), a
 {"kernels": [...]} JSON line, and {"ok": true, "device": {...}}.  Without a
@@ -651,6 +668,204 @@ def cpp_phases(dev, depth, ms_model):
     return got
 
 
+# the flagship training geometry, field for field from
+# scripts/train_flagship.py:453-484, with one cut: T = 1 of its 5 stages
+FLAGSHIP_T1 = dict(
+    T=1, K=540, landmark_n=27, tree_depth=4, shift_size=0.02, multi_scale=False,
+    img_o_size=48, img_h_size=36, img_q_size=24, mining_th=(0.2,), feats=(2000,),
+    radius=(0.3,), probs=(0.9,), recall=(0.99,), drops=(1,), nps=(1.0,),
+    score_normalization_steps=(10,), restart_on=True, restart_th=(0.001,),
+    restart_times=5, face_augment_on=False, left_pupils=(8,), right_pupils=(13,),
+    snapshot_iter=10_000, seed=11,
+)
+FIRST_CART = 532  # the model starts at cursor (0, 531): carts 532..539 are trained
+W_REL_TOL = 1e-3  # W on the card against the CPU, of max |W| (float32 Cholesky)
+
+
+def train_corpus(n, c, seed):
+    """n training faces drawn in bulk: jittered FACE27 landmarks as dark
+    3x3 blobs and a forehead band on noise (tests/test_training.py's
+    make_face at 27 landmarks).  Returns (corpus rows [n, D], gt shapes)."""
+    from jda_tpu_torch.ops.resize import cv2_resize
+
+    rng = np.random.default_rng(seed)
+    S = c.img_o_size
+    lm = FACE27[None] + rng.normal(0, 0.02, (n, 27, 2))
+    img = rng.integers(85, 175, n)[:, None, None] + rng.integers(-20, 21, (n, S, S))
+    ix = np.clip((lm[..., 0] * S).astype(int), 0, S - 1)
+    iy = np.clip((lm[..., 1] * S).astype(int), 0, S - 1)
+    dark = rng.integers(10, 60, n)[:, None]
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            img[np.arange(n)[:, None], np.clip(iy + dy, 0, S - 1),
+                np.clip(ix + dx, 0, S - 1)] = dark
+    img[:, 2 : S // 5, S // 4 : 3 * S // 4] += rng.integers(25, 75, n)[:, None, None]
+    faces = np.clip(img, 0, 255).astype(np.uint8)
+    rows = np.concatenate(
+        [cv2_resize(faces, s, s).reshape(n, -1) for s in (S, c.img_h_size, c.img_q_size)], 1
+    )
+    return rows, lm.reshape(n, -1)
+
+
+def flagship_trainer(c, rows, gts, bgs, device):
+    """A Trainer on the flagship geometry from `empty_model` with its
+    cursor at (0, FIRST_CART - 1): train() trains the stage's last carts,
+    mines, normalises at cart 540 and runs the global regression."""
+    from jda_tpu_torch.train.boost import Trainer, empty_model
+
+    model = empty_model(c)
+    model.cart_idx = FIRST_CART - 1
+    tr = Trainer(c, model=model, device=device)
+    tr.set_synthetic_data(rows, gts, bgs)
+    return tr
+
+
+def device_busy(run):
+    """(wall s, device busy s, device events) of run() under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, n = 0.0, 0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            busy += ev.device_time_total
+            n += 1
+    return wall, busy / 1e6, n
+
+
+def train_phases(dev, card):
+    """Phases 16-18: the trainer at the flagship width on the card against
+    the CPU, timed at the flagship's corpus size, and the trained model in
+    the C++-semantics detector.  Returns dense0_filter's launches in 18."""
+    import torch
+    import jda_tpu_torch as jt
+    from jda_tpu_torch.cascador import CppDetector
+    from jda_tpu_torch.data import DataSet
+    from jda_tpu_torch.ops import dense0 as D0
+
+    c = jt.Config(**FLAGSHIP_T1)
+    bgs = [make_image(480, 640, seed=500 + i) for i in range(12)]
+
+    # -- 16. training on the card against the CPU -------------------------------------
+    t0 = time.perf_counter()
+    rows, gts = train_corpus(1024, c, seed=1)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        tr = flagship_trainer(c, rows, gts, bgs, device)
+        t = time.perf_counter()
+        tr.train()
+        runs[device] = (tr, time.perf_counter() - t)
+    (a, ta), (b, tb) = runs["cuda"], runs["cpu"]
+    for f in ("scale", "lmk1", "lmk2", "off1", "off2", "feat_th", "leaf_scores",
+              "cart_th", "mean", "std", "mean_shape"):
+        if not np.array_equal(getattr(a.model, f), getattr(b.model, f)):
+            raise AssertionError(f"[16] training: model field {f} differs, card vs CPU")
+    w_err = float(np.abs(a.model.W - b.model.W).max())
+    w_max = float(np.abs(b.model.W).max())
+    if not w_err <= W_REL_TOL * w_max:
+        raise AssertionError(f"[16] training: W differs by {w_err} (max |W| {w_max})")
+    for name, x, y in (("pos live", a.pos.live, b.pos.live), ("neg live", a.neg.live, b.neg.live),
+                       ("pos weights", a.pos.weights, b.pos.weights),
+                       ("neg weights", a.neg.weights, b.neg.weights),
+                       ("mined rows", a.neg.imgs, b.neg.imgs)):
+        if x.shape != y.shape or not np.array_equal(x, y):
+            raise AssertionError(f"[16] training: {name} differ, card vs CPU")
+    if a.rng.integers(1 << 62) != b.rng.integers(1 << 62):
+        raise AssertionError("[16] training: the random streams diverged")
+    st = a.stats["stages"][0]
+    if not (np.isfinite(a.model.W).all() and w_max > 0 and st["mean_error"] < st["mean_error_before"]):
+        raise AssertionError(f"[16] training: regression did not fit ({st})")
+    log(f"[16] flagship geometry (K=540, 27 landmarks, F=2000, LBF 4320 x 54), carts "
+        f"{FIRST_CART}..{c.K - 1}, 1024 faces: card {ta:.1f} s, CPU {tb:.1f} s; every model "
+        f"field but W equal, W max |diff| {w_err:.3g} of max |W| {w_max:.4g} (tolerance "
+        f"{W_REL_TOL} relative); live masks, weights, {len(a.neg.imgs)} mined rows and the "
+        f"random stream equal; {len(a.stats['mining'])} mining events; mean error "
+        f"{st['mean_error_before']:.4f} -> {st['mean_error']:.4f}; "
+        f"done in {time.perf_counter() - t0:.1f} s")
+    del runs, a, b
+
+    # -- 17. training timed at the flagship's corpus size -------------------------------
+    t0 = time.perf_counter()
+    n_faces = 16384
+    rows, gts = train_corpus(n_faces, c, seed=2)
+    tr = flagship_trainer(c, rows, gts, bgs, dev)
+    t = time.perf_counter()
+    tr.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    carts = [x["seconds"] for x in tr.stats["carts"]]
+    nodes = tr.stats["nodes"]
+    m0 = tr.stats["mining"][0]
+    st = tr.stats["stages"][0]
+    path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_"), "trained.model")
+    jt.save_model(tr.model, path, dtype="double")
+    # one more cart step, profiled (the model is saved: cart 539 may change)
+    DataSet.update_weights(tr.pos, tr.neg)
+
+    def cart_step():
+        tr.train_cart(0, c.K - 1)
+        tr.update_scores(tr.pos, 0, c.K - 1)
+        tr.update_scores(tr.neg, 0, c.K - 1)
+
+    cart_step()
+    wall, busy, kernels = device_busy(cart_step)
+    log(f"[17] {card}: flagship geometry, {n_faces} faces, {len(carts)} carts trained "
+        f"({len(nodes)} nodes with restarts) in {train_s:.1f} s: per cart median "
+        f"{statistics.median(carts):.3f} s, max {max(carts):.3f} s; split search per node "
+        f"median {1e3 * statistics.median(nodes):.2f} ms, max {1e3 * max(nodes):.2f} ms")
+    log(f"[17] {card}: one cart step (split search + two score updates) under "
+        f"torch.profiler: wall {wall * 1e3:.1f} ms, {kernels} device events, device busy "
+        f"{busy * 1e3:.1f} ms, idle share {1 - busy / wall:.3f}")
+    log(f"[17] {card}: first mining event: {m0['mined']} of {m0['want']} negatives, "
+        f"{m0['screened']} windows screened in {m0['screen_s']:.3f} s = "
+        f"{m0['screened'] / m0['screen_s']:.0f} windows/s, host rebuild and revalidation "
+        f"{m0['revalidate_s']:.3f} s, {m0['seconds']:.3f} s in all; every event (mined, "
+        f"windows screened, screen s, host s, s): "
+        f"{[(m['mined'], m['screened'], round(m['screen_s'], 3), round(m['revalidate_s'], 3), round(m['seconds'], 3)) for m in tr.stats['mining']]}")
+    log(f"[17] {card}: gen_lbf (pos and neg, 540 carts) {st['gen_lbf_s']:.3f} s, ridge "
+        f"(LBF 4320 x 54, {tr.pos.size} positives) {st['ridge_s']:.3f} s, mean error "
+        f"{st['mean_error_before']:.4f} -> {st['mean_error']:.4f}; "
+        f"done in {time.perf_counter() - t0:.1f} s")
+    del tr
+
+    # -- 18. the trained model in the detector ------------------------------------------
+    t0 = time.perf_counter()
+    m = jt.load_model(path, dtype="double")
+    imgs = [make_scene(480, 640, seed=600 + i)[0] for i in range(8)]
+    cpp = CppDetector(m, jt.Config(fddb_detect_method=1))
+    cpp.detect_batch(imgs)  # warm: the plan's kernel tables
+    torch.cuda.synchronize()
+    D0.scale_filter.launches = D0.stage0_filter_image.launches = 0
+    t = time.perf_counter()
+    res = cpp.detect_batch(imgs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    launches = (D0.scale_filter.launches, D0.stage0_filter_image.launches)
+    if launches != (2, 0):
+        raise AssertionError(f"[18] trained model: launches {launches}, not (2, 0)")
+    for r in res:
+        if not (np.isfinite(r[1]).all() and np.isfinite(r[2]).all()) or r[2].shape != (
+                len(r[0]), 2 * m.landmark_n):
+            raise AssertionError("[18] trained model: non-finite output or wrong shape")
+    t = time.perf_counter()
+    want = CppDetector(m, jt.Config(fddb_detect_method=1), device="cpu").detect_batch(imgs)
+    cpu_s = time.perf_counter() - t
+    for i, (x, y) in enumerate(zip(res, want)):
+        same_cpp(x, y, f"[18] trained model, image {i}: card against the CPU")
+    log(f"[18] the trained model (saved as doubles, loaded) through CppDetector.detect_batch, "
+        f"method 1, B=8: {dt:.3f} s = {8 / dt:.2f} img/s, launches (dense0_filter, "
+        f"dense0_image) {launches}, boxes per image {[len(r[0]) for r in res]}; bit-equal "
+        f"to the CPU port ({cpu_s:.1f} s); "
+        f"done in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -847,13 +1062,12 @@ def main() -> int:
             D0.scale_filter_reference(vga_img, tabi, tabf, step=step, ny=ny,
                                       nx=nx, depth=depth, emit_lbf=True)
 
-    plain_ms = cuda_ms(plain, reps=1, groups=2)
+    plain_ms = event_ms(plain)[0]  # one call: the plain version takes seconds
     ms = cuda_ms(ladder, reps=20)
     per_scale_ms = cuda_ms(per_scale, reps=5)
     wrapper_ms = cuda_ms(wrapper, reps=20)
     per_scale_ms2 = cuda_ms(per_scale, reps=5)
     ms2 = cuda_ms(ladder, reps=20)
-    plain_ms2 = cuda_ms(plain, reps=1, groups=2)
     head_ms, surv_ms, queue_len = phase_ms(launch16, scr16, C0)
     alive_n = int(out16[1].sum())
     nvis_sum = int(out16[2].sum(dtype=torch.int64))
@@ -863,8 +1077,8 @@ def main() -> int:
     log(f"[6] dense0_filter per VGA batch (B=16, LBF on, 2 launches, head of {C0} carts): "
         f"{ms:.4f} / {ms2:.4f} ms kernels (head {head_ms:.4f}, survivors {surv_ms:.4f}), "
         f"{wrapper_ms:.4f} ms through the wrapper, {len(singles)} per-scale calls "
-        f"{per_scale_ms:.4f} / {per_scale_ms2:.4f} ms, plain {plain_ms:.1f} / "
-        f"{plain_ms2:.1f} ms; bytes {bytes_moved} -> {t_bytes:.4f} ms, ops {ops} -> "
+        f"{per_scale_ms:.4f} / {per_scale_ms2:.4f} ms, plain {plain_ms:.1f} ms; "
+        f"bytes {bytes_moved} -> {t_bytes:.4f} ms, ops {ops} -> "
         f"{t_ops:.4f} ms; queue {queue_len} of {16 * n_vga} windows, alive {alive_n}, "
         f"cart visits {nvis_sum}, most by one window {int(out16[2].max())}")
     # where to cut the head: windows still alive after C carts, and the time
@@ -876,7 +1090,13 @@ def main() -> int:
     def launch4(**kw):
         D0.launch(hd_img, prep_hd, out4, **kw)
 
+    def plain4():
+        for (win, step, ny, nx), (tabi, tabf) in zip(hd_scales, hd_tabs):
+            D0.scale_filter_reference(hd_img, tabi, tabf, step=step, ny=ny,
+                                      nx=nx, depth=depth, emit_lbf=True)
+
     hd4_ms = cuda_ms(lambda: launch4(scratch=scr4), reps=10)
+    hd4_plain_ms = event_ms(plain4)[0]
     hd4_head, hd4_surv, hd4_queue = phase_ms(launch4, scr4, C0)
     hd4_alive = int(out4[1].sum())
     hd4_nvis = int(out4[2].sum(dtype=torch.int64))
@@ -884,7 +1104,7 @@ def main() -> int:
         4, 1080, 1920, len(hd_scales), n_hd, K, node_n, hd4_nvis, depth,
         lbf_bytes=hd4_alive * D0.lbf_words(K) * 4)
     log(f"[6] dense0_filter per 1080p batch (B=4, LBF on, 2 launches): {hd4_ms:.4f} ms "
-        f"(head {hd4_head:.4f}, survivors {hd4_surv:.4f}), bound "
+        f"(head {hd4_head:.4f}, survivors {hd4_surv:.4f}), plain {hd4_plain_ms:.1f} ms, bound "
         f"{bound_of(hb4_bytes, hb4_ops)[0]:.5f} ms ({bound_of(hb4_bytes, hb4_ops)[1]}); "
         f"queue {hd4_queue} of {4 * n_hd} windows, alive {hd4_alive}, cart visits {hd4_nvis}")
     head_sweep(6, "1080p B=4, leaf words", launch4, out4, scr4)
@@ -1018,13 +1238,12 @@ def main() -> int:
         for t1, _, _, o1, s1 in singles:
             D0.launch(img0[None], t1, o1, scratch=s1)
 
-    img_plain_ms = cuda_ms(image_plain, reps=1, groups=2)
+    img_plain_ms = event_ms(image_plain)[0]
     img_ms = cuda_ms(image_kernel, reps=20)
     b1_ms = cuda_ms(per_scale_b1, reps=5)
     img_wrapper_ms = cuda_ms(image_wrapper, reps=20)
     b1_ms2 = cuda_ms(per_scale_b1, reps=5)
     img_ms2 = cuda_ms(image_kernel, reps=20)
-    img_plain_ms2 = cuda_ms(image_plain, reps=1, groups=2)
     img_head, img_surv, img_queue = phase_ms(launch_vga, scr_vga, C0)
     hd_ms = cuda_ms(lambda: launch_hd(scratch=scr_hd), reps=10)
     hd_head, hd_surv, hd_queue = phase_ms(launch_hd, scr_hd, C0)
@@ -1036,8 +1255,8 @@ def main() -> int:
         1, 1080, 1920, len(hd_scales), n_hd, K, node_n, nvis_hd, depth)
     log(f"[10] dense0_image per VGA image (2 launches): {img_ms:.4f} / {img_ms2:.4f} ms "
         f"kernels (head {img_head:.4f}, survivors {img_surv:.4f}, queue {img_queue}), "
-        f"{img_wrapper_ms:.4f} ms through the wrapper, plain {img_plain_ms:.1f} / "
-        f"{img_plain_ms2:.1f} ms, {len(singles)} per-scale dense0_filter calls at B=1 "
+        f"{img_wrapper_ms:.4f} ms through the wrapper, plain {img_plain_ms:.1f} ms, "
+        f"{len(singles)} per-scale dense0_filter calls at B=1 "
         f"{b1_ms:.4f} / {b1_ms2:.4f} ms; bytes {ib_nbytes} -> {ib_bytes:.5f} ms, ops "
         f"{ib_nops} -> {ib_ops:.5f} ms; cart visits {nvis_vga}, most by one window "
         f"{int(out_vga[2].max())}")
@@ -1050,6 +1269,7 @@ def main() -> int:
     del out_vga, scr_vga, out_hd, scr_hd
 
     cpp = cpp_phases(dev, depth, ms_loaded)
+    trained_launches = train_phases(dev, card)
     log("the times of both kernels' first versions are in PERF.md's kernel table")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
@@ -1065,6 +1285,7 @@ def main() -> int:
         "launches_per_batch": launches // 4,  # the timed stream is 4 batches
         # each C++ path's own run, counts set to 0 just before it
         "launches_cpp": {k: v[0] for k, v in cpp["paths"].items()},
+        "launches_trained_model": trained_launches[0],
         "max_abs_err": max(err, cpp["err"]),
         "ms": statistics.median([ms, ms2]),
         "head_ms": head_ms,
@@ -1073,11 +1294,12 @@ def main() -> int:
         "queue_len": queue_len,
         "wrapper_ms": wrapper_ms,
         "per_scale_calls_ms": statistics.median([per_scale_ms, per_scale_ms2]),
-        "plain_ms": statistics.median([plain_ms, plain_ms2]),
+        "plain_ms": plain_ms,
         "bound_ms": bound_of(t_bytes, t_ops)[0],
         "bound_by": bound_of(t_bytes, t_ops)[1],
         "library_ms": None,
         "ms_1080p": hd4_ms,
+        "plain_ms_1080p": hd4_plain_ms,
         "bound_ms_1080p": bound_of(hb4_bytes, hb4_ops)[0],
         "queue_len_1080p": hd4_queue,
         "ms_cpp_m1_b8": cpp["m1_b8"]["ms"],
@@ -1099,6 +1321,7 @@ def main() -> int:
         "launches": image_launches,
         "launches_per_batch": image_launches // len(unfused_imgs),  # of one image
         "launches_cpp": {k: v[1] for k, v in cpp["paths"].items()},
+        "launches_trained_model": trained_launches[1],
         "max_abs_err": max(img_err, cpp["img_err"]),
         "ms": statistics.median([img_ms, img_ms2]),
         "head_ms": img_head,
@@ -1106,7 +1329,7 @@ def main() -> int:
         "head_carts": C0,
         "queue_len": img_queue,
         "wrapper_ms": img_wrapper_ms,
-        "plain_ms": statistics.median([img_plain_ms, img_plain_ms2]),
+        "plain_ms": img_plain_ms,
         "bound_ms": bound_of(ib_bytes, ib_ops)[0],
         "bound_by": bound_of(ib_bytes, ib_ops)[1],
         "library_ms": None,

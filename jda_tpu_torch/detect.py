@@ -39,6 +39,7 @@ from jda_tpu_torch.ops import dense0 as D0
 from jda_tpu_torch.ops import fused as F
 from jda_tpu_torch.ops import nms as NMS
 from jda_tpu_torch.ops import resize as R
+from jda_tpu_torch.utils import resolve_device
 
 
 @dataclasses.dataclass
@@ -166,12 +167,7 @@ class Detector:
         rounding: bool = False,
         device: Union[str, torch.device, None] = None,
     ):
-        if device is None and not torch.cuda.is_available():
-            raise RuntimeError(
-                "jda_tpu_torch runs on CUDA by default and no CUDA device is "
-                "available; pass device='cpu' to run the plain PyTorch path"
-            )
-        self.device = torch.device("cuda" if device is None else device)
+        self.device = resolve_device(device)
         # rounding=False reproduces the C API's coordinate truncation
         # (c/jda.c:375-381); rounding=True uses the C++ training semantics
         # (data.cpp:48-51)

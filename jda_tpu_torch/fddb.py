@@ -33,7 +33,7 @@ import torch
 from jda_tpu_torch.cascador import CppDetector, DetectionStatistic
 from jda_tpu_torch.config import Config
 from jda_tpu_torch.params import CascadeParams
-from jda_tpu_torch.utils import log
+from jda_tpu_torch.utils import log, require_cv2
 
 
 def read_fold(fddb_dir: str, fold: int) -> List[str]:
@@ -63,15 +63,6 @@ def read_ellipses(fddb_dir: str, fold: int) -> Dict[str, np.ndarray]:
         out[name] = np.asarray(faces)
         i += 2 + n
     return out
-
-
-def _cv2(why: str):
-    """OpenCV, or an ImportError that says why it was needed."""
-    try:
-        import cv2
-    except ImportError as e:
-        raise ImportError(f"run_fddb: {why}; OpenCV (cv2) is not installed") from e
-    return cv2
 
 
 def _cv2_imread_gray(cv2) -> Callable[[str], Optional[np.ndarray]]:
@@ -137,10 +128,10 @@ def run_fddb(
     `imread` reads one image path to its gray uint8 image (None: skip the
     file); the default is OpenCV's, and without OpenCV the default raises
     ImportError.  `device` as for `CppDetector`."""
-    cv2 = _cv2("annotate=True draws with OpenCV") if annotate else None
+    cv2 = require_cv2("run_fddb: annotate=True draws with OpenCV") if annotate else None
     if imread is None:
-        imread = _cv2_imread_gray(_cv2(
-            "imread=None reads the images with OpenCV; pass imread= (a "
+        imread = _cv2_imread_gray(require_cv2(
+            "run_fddb: imread=None reads the images with OpenCV; pass imread= (a "
             "function from an image path to its gray uint8 image, or None) "
             "to read them another way"
         ))

@@ -63,22 +63,21 @@ def nms_cpp(rects: np.ndarray, scores: np.ndarray, overlap: float = 0.3) -> np.n
     h = rects[:, 3].astype(np.float64)
     areas = w * h
     # std::multimap orders by key ascending; equal scores keep insertion
-    # order, and map.rbegin() picks the *last* inserted among maxima
-    order = list(np.argsort(scores, kind="stable"))
+    # order, and map.rbegin() picks the *last* inserted among maxima.  Each
+    # pick removes the boxes it overlaps, one vectorised float64 pass over
+    # the rest in their order (the reference's per-box loop, same values)
+    order = np.argsort(scores, kind="stable")
     picked = []
-    while order:
+    while order.size:
         last = order[-1]
         picked.append(last)
-        survivors = []
-        for idx in order:
-            x1 = max(x[idx], x[last])
-            y1 = max(y[idx], y[last])
-            x2 = min(x[idx] + w[idx], x[last] + w[last])
-            y2 = min(y[idx] + h[idx], y[last] + h[last])
-            ww = max(0.0, x2 - x1)
-            hh = max(0.0, y2 - y1)
-            ov = ww * hh / (areas[idx] + areas[last] - ww * hh)
-            if ov <= overlap:
-                survivors.append(idx)
-        order = survivors
+        x1 = np.maximum(x[order], x[last])
+        y1 = np.maximum(y[order], y[last])
+        x2 = np.minimum(x[order] + w[order], x[last] + w[last])
+        y2 = np.minimum(y[order] + h[order], y[last] + h[last])
+        ww = np.maximum(0.0, x2 - x1)
+        hh = np.maximum(0.0, y2 - y1)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            ov = ww * hh / (areas[order] + areas[last] - ww * hh)
+        order = order[ov <= overlap]
     return np.asarray(picked, np.int64)

@@ -463,3 +463,48 @@ def test_run_fddb_on_card_through_imread(cuda, cpp_model, tmp_path):
             assert stats["images"] == 3
             out.append((d / "fold-01-out.txt").read_bytes())
         assert out[0] == out[1]
+
+
+def test_training_on_card_matches_cpu(cuda):
+    """A one-stage training run of a small config (8 carts, the device
+    miner, the ridge solve on cuSOLVER) on the card against the port on
+    the CPU: every model field but W equal, W within 1e-5 of its largest
+    entry (float32 Cholesky), the corpus equal."""
+    from jda_tpu_torch.data import patch_row
+    from jda_tpu_torch.train.boost import Trainer
+
+    c = jt.Config(T=1, K=8, landmark_n=5, tree_depth=4, shift_size=0.05,
+                  img_o_size=32, img_h_size=24, img_q_size=16, mining_th=(0.5,),
+                  feats=(60,), radius=(0.3,), probs=(0.8,), drops=(1,), nps=(1.0,),
+                  score_normalization_steps=(2,), left_pupils=(0,), right_pupils=(1,),
+                  snapshot_iter=10_000, seed=3)
+    rng = np.random.default_rng(5)
+    canon = np.array([[0.30, 0.35], [0.70, 0.35], [0.50, 0.55], [0.35, 0.75], [0.65, 0.75]])
+    rows, gts = [], []
+    for _ in range(150):
+        img = rng.integers(110, 150, (32, 32)).astype(np.int32)
+        lm = canon + rng.normal(0, 0.02, canon.shape)
+        for gx, gy in lm:
+            x, y = int(gx * 32), int(gy * 32)
+            img[max(y - 2, 0) : y + 3, max(x - 2, 0) : x + 3] = 20
+        img[2:8, 8:24] += 60
+        rows.append(patch_row(np.clip(img, 0, 255).astype(np.uint8), c))
+        gts.append(lm.reshape(-1))
+    bgs = [_img(160, 160, 40 + i) for i in range(6)]
+    out = []
+    for device in (cuda, "cpu"):
+        tr = Trainer(c, device=device)
+        tr.mining_max_batches = 20
+        tr.set_synthetic_data(np.stack(rows), np.stack(gts), bgs)
+        tr.train()
+        out.append(tr)
+    a, b = out
+    for f in ("scale", "lmk1", "lmk2", "off1", "off2", "feat_th", "leaf_scores",
+              "cart_th", "mean", "std"):
+        np.testing.assert_array_equal(getattr(a.model, f), getattr(b.model, f), err_msg=f)
+    assert np.abs(a.model.W - b.model.W).max() <= 1e-5 * np.abs(b.model.W).max()
+    for x, y in ((a.pos, b.pos), (a.neg, b.neg)):
+        np.testing.assert_array_equal(x.live, y.live)
+        np.testing.assert_array_equal(x.weights, y.weights)
+        np.testing.assert_array_equal(x.imgs, y.imgs)
+    assert a.stats["mining"][0]["device_miner"] and len(a.neg.imgs) > 0

@@ -83,7 +83,19 @@ Phases, each fatal on failure:
      solve, mean error before and after the regression;
  18. the model of phase 17 saved as doubles and loaded, through
      CppDetector.detect_batch with method 1 on 8 `make_scene` images: two
-     `dense0_filter` launches, bit-equal to the same on the CPU.
+     `dense0_filter` launches, bit-equal to the same on the CPU;
+ 19. the hard-pool miners at the flagship geometry on phase 16's faces and
+     backgrounds: Trainer.train() from `empty_model` at cursor (0, 535)
+     (carts 536..539) with a starved scan (2 scan states, 2 batches of 128
+     windows) and both factories registered (`hard_canvas` and
+     `near_miss`, numpy models of scripts/train_flagship.py's), (a) with
+     the canvas top-up and (b) with JDA_TPU_CANVAS_MINER=0 and the hard
+     factory's, each on the card and on the CPU: every model field but W
+     equal, W within W_REL_TOL of max |W|, live masks, the negatives' rows,
+     scores and shapes, the difficulty, the cursors and the random stream
+     equal; at least two mining events, a later one under the scan cut;
+     each top-up timed (windows or candidates screened per second, host
+     render, host rebuild and revalidation, the difficulty after it).
 
 The last lines are the card (nvidia-smi name and power limit), a
 {"kernels": [...]} JSON line, and {"ok": true, "device": {...}}.  Without a
@@ -136,14 +148,16 @@ def _blur(img, sigma):
     return np.apply_along_axis(np.convolve, 0, out, k, "valid")
 
 
-def _face(rng, size):
+def _face(rng, size, jitter=0.0):
     """A face patch as the flagship model's training scenes draw one: dark
     landmark blobs, a forehead band and cheek highlights on noise, band
-    limited."""
+    limited.  `jitter` > 0 moves each landmark by a normal draw of that
+    deviation (in window units)."""
     base, spread = int(rng.integers(85, 175)), int(rng.integers(15, 45))
     img = rng.integers(base - spread, base + spread, (size, size)).astype(np.float64)
     dark, r = int(rng.integers(10, 60)), max(1, size // 24)
-    for gx, gy in FACE27:
+    lm = np.clip(FACE27 + rng.normal(0, jitter, FACE27.shape), 0.04, 0.96) if jitter else FACE27
+    for gx, gy in lm:
         x, y = int(gx * size), int(gy * size)
         img[max(y - r, 0) : y + r + 1, max(x - r, 0) : x + r + 1] = dark
     ys = int(FACE27[:6, 1].min() * size)
@@ -866,6 +880,185 @@ def train_phases(dev, card):
     return launches
 
 
+HARD_FIRST_CART = 536  # phase 19 starts at cursor (0, 535): carts 536..539 are trained
+
+
+def hard_canvas(rng, size, difficulty):
+    """A face canvas for the canvas miner, modelled on make_hard_canvas
+    (scripts/train_flagship.py:385-450) in numpy: a `_face` at (R, R) on a
+    3R clutter canvas, blurred with `_blur` in place of band_limit.  Kind 0
+    is a true face (only boundary-IoU windows are negatives), kind 1 moves
+    the landmarks off the positives' band (less as the difficulty rises),
+    kind 2 erases a band of the face.  Returns (canvas, (R, R, R),
+    any_window)."""
+    d = min(float(difficulty), 1.0)
+    kind = int(rng.choice(3, p=[0.2, 0.5, 0.3]))
+    R = int(rng.integers(size, 2 * size + 1))
+    jitter = float(rng.uniform(0.05 - 0.024 * d, 0.09 - 0.05 * d)) if kind == 1 else 0.0
+    face = _face(rng, R, jitter)
+    if kind == 2:
+        y0 = int(rng.uniform(0.15, 0.6) * R)
+        face[y0 : y0 + int(rng.uniform(0.20 - 0.07 * d, 0.35 - 0.13 * d) * R)] = int(
+            rng.integers(40, 215))
+    canvas = rng.integers(40, 215, (3 * R, 3 * R)).astype(np.float64)
+    canvas[R : 2 * R, R : 2 * R] = face
+    canvas = _blur(canvas, max(0.6, 0.6 * R / 48))
+    return np.clip(canvas, 0, 255).astype(np.uint8), (R, R, R), kind != 0
+
+
+def near_miss(rng, size, difficulty):
+    """A registered near-miss candidate for the hard factory, modelled on
+    make_near_miss (scripts/train_flagship.py:278): one window of a
+    `hard_canvas`, registered on an off-manifold face or shifted off a
+    true face (IoU 0.28 at difficulty 0, 0.47 from difficulty 1 on),
+    subsampled to size x size as the detection scan samples."""
+    canvas, (fx, fy, fs), any_window = hard_canvas(rng, size, difficulty)
+    x0, y0 = fx, fy
+    if not any_window:
+        a = int(round(fs * (0.36 + 0.2 * (1.0 - min(float(difficulty), 1.0)))))
+        side = int(rng.integers(0, 4))
+        x0 += (a, -a, 0, 0)[side]
+        y0 += (0, 0, a, -a)[side]
+    idx = (np.arange(size) * fs) // size
+    return canvas[y0 + idx[:, None], x0 + idx[None, :]]
+
+
+def hard_pool_trainer(c, rows, gts, bgs, device):
+    """Phase 19's trainer: `empty_model` at cursor (0, HARD_FIRST_CART - 1),
+    a starved scan (2 scan states of 64 windows, 2 batches: 256 windows
+    while the first event wants one per face) and both factories
+    registered, as scripts/train_flagship.py:598-611 registers them."""
+    from jda_tpu_torch.train.boost import Trainer, empty_model
+
+    model = empty_model(c)
+    model.cart_idx = HARD_FIRST_CART - 1
+    tr = Trainer(c, model=model, device=device)
+    tr.mining_batch = 64
+    tr.mining_max_batches = 2
+    tr.neg_gen.n_states = 2
+    tr.set_synthetic_data(rows, gts, bgs)
+    o = c.img_o_size
+    tr.neg_gen.load_hard_factory(
+        lambda i, d=0.0: near_miss(np.random.default_rng(9_000_000 + i), o, d))
+    tr.neg_gen.load_canvas_factory(
+        lambda i, d=0.0: hard_canvas(np.random.default_rng(9_500_000 + i), o, d))
+    # the mined (rows, scores, shapes) as each top-up and scan hands them
+    # to the corpus: the global regression moves the stored shapes later by
+    # W, which is equal only within W_REL_TOL
+    mined = []
+    append = tr.neg.append_negatives
+
+    def record(rows, scores, shapes, mean_shape):
+        mined.append((rows.copy(), scores.copy(), shapes.copy()))
+        append(rows, scores, shapes, mean_shape)
+
+    tr.neg.append_negatives = record
+    return tr, mined
+
+
+def hard_pool_phase(card):
+    """Phase 19: the hard-pool miners at the flagship geometry on the card
+    against the CPU, (a) with the canvas top-up, (b) with
+    JDA_TPU_CANVAS_MINER=0 and the hard factory's."""
+    import jda_tpu_torch as jt
+
+    t0 = time.perf_counter()
+    c = jt.Config(**FLAGSHIP_T1)
+    rows, gts = train_corpus(1024, c, seed=1)  # phase 16's faces and backgrounds
+    bgs = [make_image(480, 640, seed=500 + i) for i in range(12)]
+    saved = os.environ.pop("JDA_TPU_CANVAS_MINER", None)
+    try:
+        for run, env in (("a", None), ("b", "0")):
+            if env is not None:
+                os.environ["JDA_TPU_CANVAS_MINER"] = env
+            runs = {}
+            for device in ("cuda", "cpu"):
+                tr, mined = hard_pool_trainer(c, rows, gts, bgs, device)
+                t = time.perf_counter()
+                tr.train()
+                runs[device] = (tr, time.perf_counter() - t, mined)
+            (a, ta, mined_a), (b, tb, mined_b) = runs["cuda"], runs["cpu"]
+            what = f"[19{run}] hard-pool mining"
+            for f in ("scale", "lmk1", "lmk2", "off1", "off2", "feat_th", "leaf_scores",
+                      "cart_th", "mean", "std", "mean_shape"):
+                if not np.array_equal(getattr(a.model, f), getattr(b.model, f)):
+                    raise AssertionError(f"{what}: model field {f} differs, card vs CPU")
+            w_err = float(np.abs(a.model.W - b.model.W).max())
+            w_max = float(np.abs(b.model.W).max())
+            if not w_err <= W_REL_TOL * w_max:
+                raise AssertionError(f"{what}: W differs by {w_err} (max |W| {w_max})")
+            if len(mined_a) != len(mined_b):
+                raise AssertionError(f"{what}: {len(mined_a)} mined batches on the card, "
+                                     f"{len(mined_b)} on the CPU")
+            checks = [("pos live", a.pos.live, b.pos.live), ("neg live", a.neg.live, b.neg.live),
+                      ("negative rows", a.neg.imgs, b.neg.imgs),
+                      ("negative scores", a.neg.scores, b.neg.scores)]
+            for i, (x, y) in enumerate(zip(mined_a, mined_b)):
+                checks += [(f"mined rows {i}", x[0], y[0]), (f"mined scores {i}", x[1], y[1]),
+                           (f"mined shapes {i}", x[2], y[2])]
+            for name, x, y in checks:
+                if x.shape != y.shape or not np.array_equal(x, y):
+                    raise AssertionError(f"{what}: {name} differ, card vs CPU")
+            # the stored shapes after the regression: each moved by a sum of
+            # K rows of W, so they differ by at most K times W's difference
+            s_err = float(np.abs(a.neg.current_shapes - b.neg.current_shapes).max())
+            if not s_err <= 2 * c.K * w_err + 1e-12:
+                raise AssertionError(f"{what}: negative shapes differ by {s_err} after the "
+                                     f"regression (W by {w_err})")
+            for attr in ("_hard_difficulty", "_hard_cursor", "_canvas_cursor"):
+                if getattr(a.neg_gen, attr) != getattr(b.neg_gen, attr):
+                    raise AssertionError(f"{what}: {attr} differs, card vs CPU")
+            if a.rng.integers(1 << 62) != b.rng.integers(1 << 62):
+                raise AssertionError(f"{what}: the random streams diverged")
+            ev = a.stats["mining"]
+            cuts = [e["max_batches"] != a.mining_max_batches for e in ev]
+            if len(ev) < 2 or not any(cuts[1:]):
+                raise AssertionError(f"{what}: {len(ev)} mining events, scan cut {cuts}")
+            key = "canvas" if env is None else "hard"
+            if not any(e[key] is not None and e[key]["mined"] > 0 for e in ev):
+                raise AssertionError(f"{what}: no {key} top-up mined anything")
+            if [e["max_batches"] for e in ev] != [e["max_batches"] for e in b.stats["mining"]]:
+                raise AssertionError(f"{what}: the events differ, card vs CPU")
+            log(f"{what}, {'canvas miner' if env is None else 'JDA_TPU_CANVAS_MINER=0'}: "
+                f"carts {HARD_FIRST_CART}..{c.K - 1} at the flagship geometry, 1024 faces: "
+                f"card {ta:.1f} s, CPU {tb:.1f} s; every model field but W equal, W max "
+                f"|diff| {w_err:.3g} of max |W| {w_max:.4g}; live masks, {len(a.neg.imgs)} "
+                f"negative rows and scores, the {sum(len(x[0]) for x in mined_a)} mined rows, "
+                f"scores and shapes, difficulty {a.neg_gen._hard_difficulty:.2f}, "
+                f"cursors ({a.neg_gen._hard_cursor}, {a.neg_gen._canvas_cursor}) and the "
+                f"random stream equal; stored shapes after the regression within "
+                f"{s_err:.3g}")
+            for i, e in enumerate(ev):
+                log(f"{what} event {i} (cart {e['cart']}): want {e['want']}, scan "
+                    f"{e['scan_mined']} in max_batches {e['max_batches']} (cut "
+                    f"{'taken' if cuts[i] else 'not taken'}), mined {e['mined']} in "
+                    f"{e['seconds']:.3f} s")
+                for k in ("canvas", "hard"):
+                    h = e[k]
+                    if h is None:
+                        continue
+                    if k == "canvas":
+                        unit = "windows"
+                        host = (f"screen loop {h['screen_s']:.3f} s = "
+                                f"{h['screened'] / h['screen_s']:.0f} windows/s with the host "
+                                f"render {h['render_s']:.3f} s in it, host rebuild and "
+                                f"revalidation {h['revalidate_s']:.3f} s")
+                    else:
+                        unit = "candidates"
+                        host = (f"host render {h['render_s']:.3f} s, validation "
+                                f"{h['screen_s']:.3f} s")
+                    log(f"{what} event {i} {k} top-up on {card}: {h['mined']} of {h['want']}, "
+                        f"{h['screened']} {unit} screened in {h['seconds']:.3f} s = "
+                        f"{h['screened'] / h['seconds']:.0f} {unit}/s; {host}; difficulty "
+                        f"after {h['difficulty']:.2f}")
+            del runs, a, b
+    finally:
+        os.environ.pop("JDA_TPU_CANVAS_MINER", None)
+        if saved is not None:
+            os.environ["JDA_TPU_CANVAS_MINER"] = saved
+    log(f"[19] done in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -1270,6 +1463,7 @@ def main() -> int:
 
     cpp = cpp_phases(dev, depth, ms_loaded)
     trained_launches = train_phases(dev, card)
+    hard_pool_phase(card)
     log("the times of both kernels' first versions are in PERF.md's kernel table")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 

@@ -25,7 +25,9 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import inspect
 import os
+import time
 from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -532,6 +534,14 @@ class NegGenerator:
         self.hards: List[np.ndarray] = []
         self.states: List[_ScanState] = []
         self._loader: Callable[[str], Optional[np.ndarray]] = self._imread
+        # on-demand hard-candidate supplies (load_hard_factory,
+        # load_canvas_factory) and their shared difficulty ladder
+        self.hard_factory: Optional[Callable] = None
+        self.canvas_factory: Optional[Callable] = None
+        self._hard_adaptive = False
+        self._hard_cursor = 0
+        self._canvas_cursor = 0
+        self._hard_difficulty = 0.0
 
     @staticmethod
     def _imread(path: str) -> Optional[np.ndarray]:
@@ -735,6 +745,116 @@ class NegGenerator:
             "avg_reject_carts": carts_n / max(nega_n, 1),
             "fp_rate": got / max(got + nega_n, 1),
             "bg_used": self.report_bg_used(),
+        }
+        return _mined(acc_rows, acc_scores, acc_shapes, stats, D, c.landmark_dim)
+
+    # -- on-demand hard-candidate stream ----------------------------------------
+
+    def load_hard_factory(self, factory: Callable) -> None:
+        """Unbounded pre-registered hard-candidate supply.
+
+        The reference consumes a finite pre-collected hard pool before
+        scanning backgrounds (data.cpp:893-897, loaded at 1102-1196).
+        `factory(i)` must deterministically return a square uint8 patch, a
+        candidate already registered to the detection window.  The trainer
+        draws on it only when the background scan under-delivers
+        (generate_hard), so early stages keep the scan's texture diversity
+        and deep stages get an inexhaustible supply of near-misses.
+
+        A two-argument factory `factory(i, difficulty)` opts into the
+        adaptive ladder: generate_hard raises the difficulty whenever a
+        batch's acceptance falls under 10 % and lowers it above 35 %, so
+        that candidates move toward the decision boundary as the cascade
+        sharpens (on a fixed candidate distribution the false-positive
+        rate decays roughly exponentially in trained carts)."""
+        self.hard_factory = factory
+        self._hard_cursor = 0
+        self._hard_difficulty = 0.0
+        try:
+            n_par = len(inspect.signature(factory).parameters)
+        except (TypeError, ValueError):
+            n_par = 1
+        self._hard_adaptive = n_par >= 2
+
+    def load_canvas_factory(self, factory: Callable) -> None:
+        """Device-batched near-miss supply (train/mining.CanvasHardMiner).
+
+        `factory(i, difficulty) -> (canvas u8 [C, C], (fx, fy, fsize),
+        any_window)` deterministically renders a face canvas: a face of box
+        (fx, fy, fsize) inside a clutter margin.  The miner extracts many
+        candidate windows per canvas on the device, so one host render
+        serves many screened windows.  `any_window=True` marks an
+        off-manifold face (every window overlapping it is a negative);
+        `any_window=False` a true face (only windows with IoU < 0.48 against
+        its box are sampled).  Shares generate_hard's difficulty ladder."""
+        self.canvas_factory = factory
+        self._canvas_cursor = 0
+
+    def generate_hard(
+        self,
+        validate_fn: Callable,
+        size: int,
+        batch: int = 512,
+        max_batches: int = 200,
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, dict]:
+        """Mine up to `size` accepted patches from the hard factory.  Same
+        contract as generate(); candidates are validated by the current
+        partial cascade like scan windows (acceptance is always Validate's
+        call, data.cpp:983-987).  The statistics add `screened` (candidates
+        validated), `render_s` (host seconds in the factory and patch_row)
+        and `screen_s` (seconds in validate_fn)."""
+        c = self.c
+        factory = self.hard_factory
+        if factory is None:
+            raise RuntimeError("generate_hard: load_hard_factory first")
+        D = sum(d * d for d in (c.img_o_size, c.img_h_size, c.img_q_size))
+        acc_rows, acc_scores, acc_shapes = [], [], []
+        nega_n = 0
+        carts_n = 0
+        got = 0
+        n_batches = 0
+        render_s = screen_s = 0.0
+        while got < size and n_batches < max_batches:
+            n_batches += 1
+            t0 = time.perf_counter()
+            rows = np.zeros((batch, D), np.uint8)
+            for b in range(batch):
+                if self._hard_adaptive:
+                    p = factory(self._hard_cursor, self._hard_difficulty)
+                else:
+                    p = factory(self._hard_cursor)
+                rows[b] = patch_row(p, c)
+                self._hard_cursor += 1
+            t1 = time.perf_counter()
+            ok, score, shape, nvis = validate_fn(rows)
+            render_s += t1 - t0
+            screen_s += time.perf_counter() - t1
+            nega_n += int((~ok).sum())
+            carts_n += int(nvis[~ok].sum())
+            if self._hard_adaptive:
+                # headroom past 1.0: the (1, 2] band maps to even harder
+                # factory composites
+                rate = float(ok.mean())
+                if rate < 0.10:
+                    self._hard_difficulty = min(2.0, self._hard_difficulty + 0.15)
+                elif rate > 0.35:
+                    self._hard_difficulty = max(0.0, self._hard_difficulty - 0.05)
+            take = np.flatnonzero(ok)[: size - got]
+            if len(take):
+                acc_rows.append(rows[take])
+                acc_scores.append(score[take])
+                acc_shapes.append(shape[take])
+                got += len(take)
+        stats = {
+            "exhausted": got < size,
+            "not_hard": nega_n,
+            "avg_reject_carts": carts_n / max(nega_n, 1),
+            "fp_rate": got / max(got + nega_n, 1),
+            "bg_used": 0,
+            "difficulty": self._hard_difficulty,
+            "screened": n_batches * batch,
+            "render_s": render_s,
+            "screen_s": screen_s,
         }
         return _mined(acc_rows, acc_scores, acc_shapes, stats, D, c.landmark_dim)
 

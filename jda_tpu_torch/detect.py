@@ -152,8 +152,8 @@ class Detector:
     depends only on the (unchanged within a stage) shape, and the score
     chain recomputes the identical float sequence from zero.
 
-    Not ported yet: `mesh=` (multi-GPU detection, A.7), which raises
-    NotImplementedError naming it.
+    Not ported yet: `mesh=` (multi-GPU detection, ROADMAP A.12), which
+    raises NotImplementedError naming it.
     """
 
     SLAB = 1 << 16  # windows per prefilter pass (bounds temp memory)
@@ -233,11 +233,23 @@ class Detector:
 
     # -- plans ---------------------------------------------------------------
 
+    def _cached_plan(self, key) -> Optional[dict]:
+        """The plan cached under `key`, or None.  Every plan is fetched
+        here first, so JDA_TPU_TAIL is read at every call, as the JAX
+        package reads it: a value other than 'gather' selects its canvas
+        tail (ops/mxu_tail.py), which is not ported, and raises."""
+        if os.environ.get("JDA_TPU_TAIL", "gather") != "gather":
+            raise NotImplementedError(
+                "JDA_TPU_TAIL other than 'gather' selects the canvas tail "
+                "(ops/mxu_tail.py), which is not ported yet (ROADMAP A.13)"
+            )
+        return self._plans.get(key)
+
     def _plan(self, Hc, Wc, scale, min_size, max_size_c) -> dict:
         """Window ladder and per-scale dense tables for one canonical
         geometry (jdaDetect semantics, truncation), cached."""
         key = ("c", Hc, Wc, float(scale), min_size, max_size_c, self.rounding)
-        plan = self._plans.get(key)
+        plan = self._cached_plan(key)
         if plan is None:
             x, y, win, scales = enumerate_windows(Wc, Hc, scale, min_size, max_size_c)
             plan = self._plan_windows(
@@ -627,8 +639,7 @@ class Detector:
         """
         if mesh is not None:
             raise NotImplementedError(
-                "mesh= (multi-device detection) is not ported yet (ROADMAP "
-                "A.7, left out: multi-GPU)"
+                "mesh= (multi-device detection) is not ported yet (ROADMAP A.12)"
             )
         if th is None:
             th = self.final_th_default

@@ -72,6 +72,28 @@ class CascadeParams:
     def landmark_dim(self) -> int:
         return 2 * self.landmark_n
 
+    def describe_cart(self, t: int, k: int) -> str:
+        """Human-readable dump of one cart (Cart::PrintSelf,
+        cart.cpp:452-471).  The integer fields print as their int32 values
+        and the float fields with four decimals."""
+        lines = [f"Cart (stage {t+1}, cart {k+1})", "node parameters"]
+        for i in range(self.node_n):
+            lines.append(
+                f"  node {i+1}: [scale = {self.scale[t,k,i]}, "
+                f"th = {self.feat_th[t,k,i]}, "
+                f"landmark_1 = ({self.lmk1[t,k,i]}, "
+                f"{self.off1[t,k,i,0]:.4f}, {self.off1[t,k,i,1]:.4f}), "
+                f"landmark_2 = ({self.lmk2[t,k,i]}, "
+                f"{self.off2[t,k,i,0]:.4f}, {self.off2[t,k,i,1]:.4f})]"
+            )
+        leaf = ", ".join(f"{v:.4f}" for v in self.leaf_scores[t, k])
+        lines.append(f"leaf scores: [{leaf}]")
+        lines.append(
+            f"mean = {self.mean[t,k]:.4f}, std = {self.std[t,k]:.4f}, "
+            f"threshold = {self.cart_th[t,k]:.4f}"
+        )
+        return "\n".join(lines)
+
     def astype(self, dtype) -> "CascadeParams":
         """Cast float fields (float32 mirrors the C library's model)."""
         return dataclasses.replace(

@@ -27,8 +27,10 @@ Window enumeration is exactly NegGenerator.next_window's stream; a
 one-slot pushback per state lets each batch group a state's windows by
 (background, window size).
 
-The hard-pool miners of the JAX package (CanvasHardMiner, the hard
-factory and its difficulty ladder) are not ported yet (ROADMAP A.11b).
+CanvasHardMiner screens near-miss windows of host-rendered face canvases
+(NegGenerator.load_canvas_factory) through the same synthesis with
+truncation taps, whose blend gives the source pixel exactly: its o-plane
+pixels equal the host rebuild's.
 """
 
 from __future__ import annotations
@@ -127,6 +129,12 @@ def _pack_results(alive: Tensor, valid: Tensor, nvis: Tensor) -> Tensor:
     )
 
 
+def _pack_canvas_results(alive: Tensor, valid: Tensor, nvis: Tensor) -> Tensor:
+    """[b + 3] int32: `_pack_results` and the count of valid lanes (the
+    difficulty ladder's denominator)."""
+    return torch.cat([_pack_results(alive, valid, nvis), valid.sum().to(torch.int32)[None]])
+
+
 def _crop_rows(acc, c: Config) -> np.ndarray:
     """Corpus rows of accepted windows (bg, y, x, w, shift): crops of one
     size are resized in one cv2_resize call each (bit-equal to one call
@@ -146,6 +154,43 @@ def _crop_rows(acc, c: Config) -> np.ndarray:
             axis=1,
         )
     return rows
+
+
+def _revalidate(acc, build_rows, validate, size: int):
+    """The exact host rebuild and revalidation of accepted windows `acc`
+    (each ending in its screen shift), in chunks of 4,096: rows from
+    `build_rows(chunk)`, validated with the same shifts, and the first
+    `size` accepted kept, so stored rows, scores and shapes never depend
+    on the device's pixels.  Returns the (rows, scores, shapes) lists and
+    the count kept."""
+    rows_l, scores_l, shapes_l = [], [], []
+    got = 0
+    CH = 4096
+    for i0 in range(0, len(acc), CH):
+        chunk = acc[i0 : i0 + CH]
+        rows = build_rows(chunk)
+        ok, score, shape, _ = validate(rows, shift=np.stack([a[-1] for a in chunk]))
+        take = np.flatnonzero(ok)[: size - got]
+        if len(take):
+            rows_l.append(rows[take])
+            scores_l.append(score[take])
+            shapes_l.append(shape[take])
+            got += len(take)
+        if got >= size:
+            break
+    return rows_l, scores_l, shapes_l, got
+
+
+def _taps_dev(per_slot, dev) -> Tuple[Tensor, ...]:
+    """Per-slot (t0, t1, wf0, wf1) taps of one patch size stacked to
+    [S, size] tensors on `dev` (int64 indices, float32 weights)."""
+    t0, t1, wf0, wf1 = (np.stack(a) for a in zip(*per_slot))
+    return (
+        torch.as_tensor(t0.astype(np.int64), device=dev),
+        torch.as_tensor(t1.astype(np.int64), device=dev),
+        torch.as_tensor(wf0, device=dev),
+        torch.as_tensor(wf1, device=dev),
+    )
 
 
 class DeviceMiner:
@@ -311,19 +356,11 @@ class DeviceMiner:
             screened += int(valid.sum())
             taps = {}
             for sz in sizes:
-                per = []
                 for gr in groups:
                     key = (gr["w"], sz)
                     if key not in self._taps_cache:
                         self._taps_cache[key] = _bilinear_taps(gr["w"], sz)
-                    per.append(self._taps_cache[key])
-                t0, t1, wf0, wf1 = (np.stack(a) for a in zip(*per))
-                taps[sz] = (
-                    torch.as_tensor(t0.astype(np.int64), device=dev),
-                    torch.as_tensor(t1.astype(np.int64), device=dev),
-                    torch.as_tensor(wf0, device=dev),
-                    torch.as_tensor(wf1, device=dev),
-                )
+                taps[sz] = _taps_dev([self._taps_cache[(gr["w"], sz)] for gr in groups], dev)
             flat_dev, shapes_dev, valid_dev = synth(
                 self._bgs_dev,
                 torch.as_tensor(ys, device=dev),
@@ -341,26 +378,11 @@ class DeviceMiner:
             harvest(entry)
         screen_s = time.perf_counter() - t_screen
 
-        # exact host rebuild + revalidation of the accepted windows (same
-        # initial shifts), so stored rows/scores/shapes equal the host path's
+        # stored rows, scores and shapes equal the host mining path's
         t_host = time.perf_counter()
-        rows_l, scores_l, shapes_l = [], [], []
-        got = 0
-        CH = 4096
-        for i0 in range(0, len(acc), CH):
-            chunk = acc[i0 : i0 + CH]
-            rows = _crop_rows(chunk, c)
-            shifts = np.stack([a[4] for a in chunk])
-            ok, score, shape, _ = validate(rows, shift=shifts)
-            take = np.flatnonzero(ok)[: size - got]
-            if len(take):
-                rows_l.append(rows[take])
-                scores_l.append(score[take])
-                shapes_l.append(shape[take])
-                got += len(take)
-            if got >= size:
-                break
-
+        rows_l, scores_l, shapes_l, got = _revalidate(
+            acc, lambda chunk: _crop_rows(chunk, c), validate, size
+        )
         stats = {
             "exhausted": got < size,
             "not_hard": nega_n,
@@ -369,6 +391,327 @@ class DeviceMiner:
             "bg_used": g.report_bg_used(),
             "screened": screened,
             "screen_s": screen_s,
+            "revalidate_s": time.perf_counter() - t_host,
+        }
+        return _mined(rows_l, scores_l, shapes_l, stats, D, c.landmark_dim)
+
+
+# ---------------------------------------------------------------------------
+# Canvas-based near-miss mining
+# ---------------------------------------------------------------------------
+
+def _trunc_taps(w: int, size: int):
+    """One-tap operators of the detection scan's truncated coordinate map
+    patch[i] = src[(i * w) // size] (c/jda.c:375-381: windows are
+    subsampled, never resized), as degenerate two-tap operators (wf0 = 1,
+    wf1 = 0) so that _make_synth's blend gives the source pixel exactly."""
+    t = ((np.arange(size, dtype=np.int64) * w) // size).astype(np.int32)
+    return t, t, np.ones(size, np.float32), np.zeros(size, np.float32)
+
+
+def _trunc_then_bilinear_taps(w: int, o_size: int, sz: int):
+    """Composed taps of cv2-bilinear-resize(subsample(canvas, w -> o_size),
+    o_size -> sz): the o-patch index of each bilinear tap is mapped through
+    the truncation map, weights unchanged (both maps are separable)."""
+    t = ((np.arange(o_size, dtype=np.int64) * w) // o_size).astype(np.int32)
+    b0, b1, w0, w1 = _bilinear_taps(o_size, sz)
+    return t[b0], t[b1], w0, w1
+
+
+def _box_iou_vec(x0, y0, w, fx, fy, fs):
+    """IoU of square windows (x0, y0, w) with the face box (fx, fy, fs)."""
+    ix = np.maximum(0.0, np.minimum(x0 + w, fx + fs) - np.maximum(x0, fx))
+    iy = np.maximum(0.0, np.minimum(y0 + w, fy + fs) - np.maximum(y0, fy))
+    inter = ix * iy
+    return inter / (w * w + fs * fs - inter)
+
+
+def _subsample(canvas: np.ndarray, x0: int, y0: int, w: int, out: int):
+    idx = (np.arange(out, dtype=np.int64) * w) // out
+    return canvas[y0 + idx[:, None], x0 + idx[None, :]]
+
+
+def _canvas_rows(acc, c: Config) -> np.ndarray:
+    """Corpus rows of accepted canvas windows (canvas, y, x, w, shift):
+    patch_row of each window's truncation subsample, every o-size patch of
+    the chunk resized in one cv2_resize call per plane (bit-equal to one
+    call per window)."""
+    o = c.img_o_size
+    subs = np.stack([_subsample(cv, x, y, w, o) for cv, y, x, w, _ in acc])
+    return np.concatenate(
+        [cv2_resize(subs, s, s).reshape(len(acc), -1) for s in (o, c.img_h_size, c.img_q_size)],
+        axis=1,
+    )
+
+
+class CanvasHardMiner:
+    """Device-batched near-miss mining from host-rendered face canvases.
+
+    NegGenerator.generate_hard renders one candidate patch per host call.
+    Here the host renders a face canvas (face + clutter margin) once, and
+    the device extracts dozens to hundreds of candidate windows from it per
+    batch through DeviceMiner's window synthesis with truncation taps, so
+    the screen's o-plane pixels equal the detection scan's coordinate map
+    and the host rebuild of accepted windows.
+
+    Window geometry per canvas kind (NegGenerator.load_canvas_factory):
+      * true face (any_window=False): windows with IoU in
+        [lo(difficulty), 0.48] against the face box: off-scale, off-centre
+        and boundary-IoU negatives in one sampler;
+      * off-manifold face (any_window=True): registered windows (the
+        positives' own scale and shift band): the face itself is the
+        negative.
+
+    Shares NegGenerator's adaptive difficulty ladder: acceptance below
+    10 % raises the difficulty (the factory renders harder faces, the IoU
+    band tightens toward 0.48), above 35 % lowers it.  The resident canvas
+    buffer takes the largest canvas's true size, grows when a refresh brings
+    a larger one, and re-uploads only the slots whose canvas changed.  Runs
+    on CUDA unless given `device`."""
+
+    def __init__(
+        self,
+        gen: NegGenerator,
+        c: Config,
+        n_slots: int = 16,
+        per_slot: int = 256,
+        device: Union[str, torch.device, None] = None,
+    ):
+        self.device = resolve_device(device)
+        self.gen = gen
+        self.c = c
+        self.S = n_slots
+        self.P = per_slot
+        self.slots: List[Optional[dict]] = [None] * n_slots
+        self._ver = [-1] * n_slots
+        self._slot_ver = [-2] * n_slots  # version of each slot's device copy
+        self._next_ver = 0
+        self._refresh_ptr = 0
+        self._canv_dev: Optional[Tensor] = None
+        self._hw = 0
+        self._taps_cache: Dict[Tuple[int, int], Tuple] = {}
+
+    # -- host side ------------------------------------------------------------
+
+    def _refresh(self, count: int) -> None:
+        """Render `count` canvases into the next slots, round robin."""
+        g = self.gen
+        for _ in range(count):
+            sid = self._refresh_ptr % self.S
+            self._refresh_ptr += 1
+            canvas, (fx, fy, fs), any_window = g.canvas_factory(
+                g._canvas_cursor, g._hard_difficulty
+            )
+            g._canvas_cursor += 1
+            self.slots[sid] = dict(
+                canvas=np.ascontiguousarray(canvas, np.uint8),
+                fx=int(fx),
+                fy=int(fy),
+                fs=int(fs),
+                any=bool(any_window),
+            )
+            self._ver[sid] = self._next_ver
+            self._next_ver += 1
+
+    def _sample_windows(self, slot: dict, rng) -> Tuple[int, np.ndarray, np.ndarray, int]:
+        """One window size and up to P origins for a slot, honouring its
+        negative-window constraint.  Returns (w, ys, xs, n_valid).  Draws
+        from `rng` in the JAX package's order and sizes."""
+        P = self.P
+        d = self.gen._hard_difficulty
+        C = slot["canvas"].shape[0]
+        fx, fy, fs = slot["fx"], slot["fy"], slot["fs"]
+        fcx, fcy = fx + fs / 2.0, fy + fs / 2.0
+        ys = np.zeros(P, np.int64)
+        xs = np.zeros(P, np.int64)
+        if slot["any"]:
+            # registered windows of an off-manifold face: the positives'
+            # own tolerance band (scale 0.95-1.2, centre +-5 %)
+            w = int(round(fs * rng.uniform(0.92, 1.25)))
+            w = max(24, min(w, C))
+            cx = fcx + rng.uniform(-0.07, 0.07, P) * fs
+            cy = fcy + rng.uniform(-0.07, 0.07, P) * fs
+            xs[:] = np.clip(np.round(cx - w / 2), 0, C - w).astype(np.int64)
+            ys[:] = np.clip(np.round(cy - w / 2), 0, C - w).astype(np.int64)
+            return w, ys, xs, P
+        # true face: boundary-IoU windows only; lo rises with difficulty so
+        # that candidates track the cascade's decision boundary, clamped
+        # under hi so that the band stays non-empty at the ladder's cap 2.0
+        lo = min(0.22 + 0.20 * d, 0.44)
+        hi = 0.48
+        w = int(round(fs * rng.uniform(0.7, 1.6)))
+        w = max(24, min(w, C))
+        n = 0
+        for _attempt in range(6):
+            need = P - n
+            if need <= 0:
+                break
+            k = need * 4
+            ang = rng.uniform(0, 2 * np.pi, k)
+            dist = rng.uniform(0.0, 0.75 * fs, k)
+            cx = fcx + np.cos(ang) * dist
+            cy = fcy + np.sin(ang) * dist
+            x0 = np.clip(np.round(cx - w / 2), 0, C - w).astype(np.int64)
+            y0 = np.clip(np.round(cy - w / 2), 0, C - w).astype(np.int64)
+            iou = _box_iou_vec(x0, y0, w, fx, fy, fs)
+            keep = np.flatnonzero((iou >= lo) & (iou <= hi))[:need]
+            if len(keep):
+                xs[n : n + len(keep)] = x0[keep]
+                ys[n : n + len(keep)] = y0[keep]
+                n += len(keep)
+        return w, ys, xs, n
+
+    # -- device residency -------------------------------------------------------
+
+    def _ensure_dev(self) -> None:
+        """The slots' canvases in a resident [S, C, C] uint8 tensor, C the
+        largest canvas yet: rebuilt when a larger canvas arrives, else
+        only the slots whose canvas changed are uploaded."""
+        cmax = max([s["canvas"].shape[0] for s in self.slots] + [self._hw])
+        if self._canv_dev is None or cmax != self._hw:
+            self._hw = cmax
+            buf = np.zeros((self.S, cmax, cmax), np.uint8)
+            for sid, s in enumerate(self.slots):
+                cv = s["canvas"]
+                buf[sid, : cv.shape[0], : cv.shape[1]] = cv
+                self._slot_ver[sid] = self._ver[sid]
+            self._canv_dev = torch.from_numpy(buf).to(self.device)
+            return
+        for sid, s in enumerate(self.slots):
+            if self._slot_ver[sid] != self._ver[sid]:
+                pad = np.zeros((cmax, cmax), np.uint8)
+                cv = s["canvas"]
+                pad[: cv.shape[0], : cv.shape[1]] = cv
+                self._canv_dev[sid] = torch.from_numpy(pad).to(self.device)
+                self._slot_ver[sid] = self._ver[sid]
+
+    def _taps(self, w: int, sz: int):
+        key = (w, sz)
+        if key not in self._taps_cache:
+            o = self.c.img_o_size
+            self._taps_cache[key] = (
+                _trunc_taps(w, o) if sz == o else _trunc_then_bilinear_taps(w, o, sz)
+            )
+        return self._taps_cache[key]
+
+    # -- main -------------------------------------------------------------------
+
+    def generate(
+        self,
+        validate,
+        size: int,
+        max_batches: int = 200,
+        rng: Optional[np.random.Generator] = None,
+    ):
+        """Same contract as NegGenerator.generate_hard: mine up to `size`
+        accepted (row, score, shape) triples, every candidate validated by
+        the current partial cascade (data.cpp:983-987).  `validate` is
+        Trainer.make_validator's closure.  The statistics add `screened`
+        (valid windows screened), `screen_s` (host seconds of the screen
+        loop), `render_s` (of it, in the canvas factory) and `revalidate_s`
+        (the exact host rebuild and revalidation)."""
+        c = self.c
+        g = self.gen
+        if g.canvas_factory is None:
+            raise RuntimeError("CanvasHardMiner: load_canvas_factory first")
+        S, P = self.S, self.P
+        b = S * P
+        rng = rng if rng is not None else np.random.default_rng(0)
+        o = c.img_o_size
+        sizes = (o, c.img_h_size, c.img_q_size) if c.multi_scale else (o,)
+        D = sum(d * d for d in (c.img_o_size, c.img_h_size, c.img_q_size))
+        synth = _make_synth(sizes, D)
+        dev = self.device
+
+        t_screen = time.perf_counter()
+        render_s = 0.0
+        if any(s is None for s in self.slots):
+            self._refresh(S)
+            render_s += time.perf_counter() - t_screen
+
+        acc = []  # (canvas ref, y, x, w, shift)
+        nega_n = 0
+        carts_n = 0
+        screened = 0
+        n_batches = 0
+        # one batch in flight, harvested after the next is dispatched, as in
+        # the JAX package: the ladder moves at harvest, so the refresh and
+        # the window sampling of batch i+1 see the difficulty before batch
+        # i's verdict
+        pending = []
+        want = size + max(size // 16, 8)
+
+        def harvest(entry):
+            nonlocal nega_n, carts_n
+            slots_h, shift_h, packed = entry
+            arr = packed.cpu().numpy()
+            nega_n += int(arr[b])
+            carts_n += int(arr[b + 1])
+            nvalid = int(arr[b + 2])
+            accepted = np.flatnonzero(arr[:b])
+            for flat_i in accepted:
+                sid, p = divmod(int(flat_i), P)
+                cv, w, ys, xs = slots_h[sid]
+                acc.append((cv, int(ys[p]), int(xs[p]), w, shift_h[flat_i]))
+            # adaptive difficulty, the policy of NegGenerator.generate_hard
+            rate = len(accepted) / max(nvalid, 1)
+            if rate < 0.10:
+                g._hard_difficulty = min(2.0, g._hard_difficulty + 0.15)
+            elif rate > 0.35:
+                g._hard_difficulty = max(0.0, g._hard_difficulty - 0.05)
+
+        while len(acc) < want and n_batches < max_batches:
+            n_batches += 1
+            if n_batches > 1:
+                t = time.perf_counter()
+                self._refresh(max(1, S // 4))
+                render_s += time.perf_counter() - t
+            self._ensure_dev()
+            # the JAX package draws the shifts of the whole padded batch
+            # first, then each slot's windows
+            shift = rng.uniform(-c.shift_size, c.shift_size, (b, 2)).astype(np.float32)
+            slots_h = []
+            ns = []
+            for slot in self.slots:
+                w, ys, xs, n = self._sample_windows(slot, rng)
+                slots_h.append((slot["canvas"], w, ys, xs))
+                ns.append(n)
+            screened += sum(ns)
+            taps = {sz: _taps_dev([self._taps(sh[1], sz) for sh in slots_h], dev) for sz in sizes}
+            valid = np.arange(P)[None, :] < np.asarray(ns)[:, None]
+            flat_dev, shapes_dev, valid_dev = synth(
+                self._canv_dev,
+                torch.as_tensor(np.stack([sh[2] for sh in slots_h]), device=dev),
+                torch.as_tensor(np.stack([sh[3] for sh in slots_h]), device=dev),
+                taps,
+                torch.as_tensor(valid, device=dev),
+                torch.as_tensor(shift, device=dev),
+                validate.ms_dev,
+            )
+            state = validate.validate_dev(flat_dev, shapes_dev, valid_dev, b)
+            pending.append(
+                (slots_h, shift, _pack_canvas_results(state["alive"], valid_dev, state["nvis"]))
+            )
+            if len(pending) > 1:
+                harvest(pending.pop(0))
+        for entry in pending:
+            harvest(entry)
+        screen_s = time.perf_counter() - t_screen
+
+        t_host = time.perf_counter()
+        rows_l, scores_l, shapes_l, got = _revalidate(
+            acc, lambda chunk: _canvas_rows(chunk, c), validate, size
+        )
+        stats = {
+            "exhausted": got < size,
+            "not_hard": nega_n,
+            "avg_reject_carts": carts_n / max(nega_n, 1),
+            "fp_rate": got / max(got + nega_n, 1),
+            "bg_used": 0,
+            "difficulty": g._hard_difficulty,
+            "screened": screened,
+            "screen_s": screen_s,
+            "render_s": render_s,
             "revalidate_s": time.perf_counter() - t_host,
         }
         return _mined(rows_l, scores_l, shapes_l, stats, D, c.landmark_dim)

@@ -465,23 +465,22 @@ def test_run_fddb_on_card_through_imread(cuda, cpp_model, tmp_path):
         assert out[0] == out[1]
 
 
-def test_training_on_card_matches_cpu(cuda):
-    """A one-stage training run of a small config (8 carts, the device
-    miner, the ridge solve on cuSOLVER) on the card against the port on
-    the CPU: every model field but W equal, W within 1e-5 of its largest
-    entry (float32 Cholesky), the corpus equal."""
-    from jda_tpu_torch.data import patch_row
-    from jda_tpu_torch.train.boost import Trainer
+def _train_config(**kw):
+    return jt.Config(**dict(
+        T=1, K=8, landmark_n=5, tree_depth=4, shift_size=0.05, img_o_size=32,
+        img_h_size=24, img_q_size=16, mining_th=(0.5,), feats=(60,), radius=(0.3,),
+        probs=(0.8,), drops=(1,), nps=(1.0,), score_normalization_steps=(2,),
+        left_pupils=(0,), right_pupils=(1,), snapshot_iter=10_000, seed=3, **kw))
 
-    c = jt.Config(T=1, K=8, landmark_n=5, tree_depth=4, shift_size=0.05,
-                  img_o_size=32, img_h_size=24, img_q_size=16, mining_th=(0.5,),
-                  feats=(60,), radius=(0.3,), probs=(0.8,), drops=(1,), nps=(1.0,),
-                  score_normalization_steps=(2,), left_pupils=(0,), right_pupils=(1,),
-                  snapshot_iter=10_000, seed=3)
+
+def _train_data(c, n=150):
+    """n small synthetic faces (rows, gt shapes) and 6 backgrounds."""
+    from jda_tpu_torch.data import patch_row
+
     rng = np.random.default_rng(5)
     canon = np.array([[0.30, 0.35], [0.70, 0.35], [0.50, 0.55], [0.35, 0.75], [0.65, 0.75]])
     rows, gts = [], []
-    for _ in range(150):
+    for _ in range(n):
         img = rng.integers(110, 150, (32, 32)).astype(np.int32)
         lm = canon + rng.normal(0, 0.02, canon.shape)
         for gx, gy in lm:
@@ -490,12 +489,36 @@ def test_training_on_card_matches_cpu(cuda):
         img[2:8, 8:24] += 60
         rows.append(patch_row(np.clip(img, 0, 255).astype(np.uint8), c))
         gts.append(lm.reshape(-1))
-    bgs = [_img(160, 160, 40 + i) for i in range(6)]
+    return np.stack(rows), np.stack(gts), [_img(160, 160, 40 + i) for i in range(6)]
+
+
+def _canvas_factory(c):
+    """A bright 'face' square inside clutter; odd indices off-manifold."""
+
+    def factory(i, d=0.0):
+        rng = np.random.default_rng(1000 + i)
+        R = int(rng.integers(c.img_o_size, 2 * c.img_o_size))
+        canvas = rng.integers(40, 200, (3 * R, 3 * R)).astype(np.uint8)
+        canvas[R : 2 * R, R : 2 * R] = rng.integers(150, 255, (R, R))
+        return canvas, (R, R, R), bool(i % 2)
+
+    return factory
+
+
+def test_training_on_card_matches_cpu(cuda):
+    """A one-stage training run of a small config (8 carts, the device
+    miner, the ridge solve on cuSOLVER) on the card against the port on
+    the CPU: every model field but W equal, W within 1e-5 of its largest
+    entry (float32 Cholesky), the corpus equal."""
+    from jda_tpu_torch.train.boost import Trainer
+
+    c = _train_config()
+    rows, gts, bgs = _train_data(c)
     out = []
     for device in (cuda, "cpu"):
         tr = Trainer(c, device=device)
         tr.mining_max_batches = 20
-        tr.set_synthetic_data(np.stack(rows), np.stack(gts), bgs)
+        tr.set_synthetic_data(rows, gts, bgs)
         tr.train()
         out.append(tr)
     a, b = out
@@ -508,3 +531,97 @@ def test_training_on_card_matches_cpu(cuda):
         np.testing.assert_array_equal(x.weights, y.weights)
         np.testing.assert_array_equal(x.imgs, y.imgs)
     assert a.stats["mining"][0]["device_miner"] and len(a.neg.imgs) > 0
+
+
+@pytest.mark.parametrize("canvas_miner", ["1", "0"], ids=["canvas", "hard-factory"])
+def test_hard_miners_through_trainer_on_card_match_cpu(cuda, monkeypatch, canvas_miner):
+    """A one-stage run with both factories registered and a starved scan
+    (2 scan states, one 128-window batch): CanvasHardMiner.generate (or,
+    with JDA_TPU_CANVAS_MINER=0, NegGenerator.generate_hard) fills every
+    shortfall on the card as on the CPU: every model field but W equal, the
+    corpus, the ladder, the cursors and the Generator's next draw equal."""
+    from jda_tpu_torch.train.boost import Trainer
+
+    monkeypatch.setenv("JDA_TPU_CANVAS_MINER", canvas_miner)
+    c = _train_config()
+    rows, gts, bgs = _train_data(c)
+
+    def hard_factory(i, d):
+        rng = np.random.default_rng(50_000 + i)
+        spread = max(8, int(120 * (1.0 - 0.4 * d)))
+        return rng.integers(128 - spread, 128 + spread, (32, 32)).astype(np.uint8)
+
+    out = []
+    for device in (cuda, "cpu"):
+        tr = Trainer(c, device=device)
+        tr.mining_batch = 16
+        tr.mining_max_batches = 1
+        tr.neg_gen.n_states = 2
+        tr.set_synthetic_data(rows, gts, bgs)
+        tr.neg_gen.load_hard_factory(hard_factory)
+        tr.neg_gen.load_canvas_factory(_canvas_factory(c))
+        tr.train()
+        out.append(tr)
+    a, b = out
+    for f in ("scale", "lmk1", "lmk2", "off1", "off2", "feat_th", "leaf_scores",
+              "cart_th", "mean", "std"):
+        np.testing.assert_array_equal(getattr(a.model, f), getattr(b.model, f), err_msg=f)
+    assert np.abs(a.model.W - b.model.W).max() <= 1e-5 * np.abs(b.model.W).max()
+    for x, y in ((a.pos, b.pos), (a.neg, b.neg)):
+        np.testing.assert_array_equal(x.live, y.live)
+        np.testing.assert_array_equal(x.imgs, y.imgs)
+    for attr in ("_hard_difficulty", "_hard_cursor", "_canvas_cursor"):
+        assert getattr(a.neg_gen, attr) == getattr(b.neg_gen, attr), attr
+    assert a.rng.integers(1 << 62) == b.rng.integers(1 << 62)
+    key = "canvas" if canvas_miner == "1" else "hard"
+    assert any(e[key] is not None and e[key]["mined"] > 0 for e in a.stats["mining"])
+    assert [e["max_batches"] for e in a.stats["mining"]] == [
+        e["max_batches"] for e in b.stats["mining"]]
+
+
+@pytest.mark.parametrize("multi", [False, True], ids=["single-scale", "multi-scale"])
+def test_truncation_synth_on_card(cuda, multi):
+    """The canvas miner's synth on the card: with truncation taps the o
+    plane equals the host `_subsample`; every plane equals the same synth
+    on the CPU (the same float32 blend)."""
+    from jda_tpu_torch.data import NegGenerator
+    from jda_tpu_torch.train import mining as M
+
+    c = _train_config(multi_scale=multi)
+    o = c.img_o_size
+    sizes = (o, c.img_h_size, c.img_q_size) if multi else (o,)
+    D = sum(d * d for d in (o, c.img_h_size, c.img_q_size))
+    g = NegGenerator(c)
+    g.load_canvas_factory(_canvas_factory(c))
+    m = M.CanvasHardMiner(g, c, n_slots=4, per_slot=64, device=cuda)
+    m._refresh(4)
+    m._ensure_dev()
+    rng = np.random.default_rng(3)
+    meta = [m._sample_windows(s, rng) for s in m.slots]
+    valid = np.arange(m.P)[None] < np.asarray([x[3] for x in meta])[:, None]
+    shift = rng.uniform(-0.05, 0.05, (m.S * m.P, 2)).astype(np.float32)
+    ms = rng.uniform(0.2, 0.8, c.landmark_dim).astype(np.float32)
+    flats = []
+    for dev in (cuda, torch.device("cpu")):
+        taps = {
+            sz: tuple(torch.as_tensor(np.stack(a).astype(np.int64 if i < 2 else np.float32),
+                                      device=dev)
+                      for i, a in enumerate(zip(*(m._taps(x[0], sz) for x in meta))))
+            for sz in sizes
+        }
+        flat, _, _ = M._make_synth(sizes, D)(
+            m._canv_dev.to(dev),
+            torch.as_tensor(np.stack([x[1] for x in meta]), device=dev),
+            torch.as_tensor(np.stack([x[2] for x in meta]), device=dev),
+            taps,
+            torch.as_tensor(valid, device=dev),
+            torch.as_tensor(shift, device=dev),
+            torch.as_tensor(ms, device=dev),
+        )
+        flats.append(flat.cpu().numpy().reshape(m.S * m.P, D))
+    v = valid.reshape(-1)
+    np.testing.assert_array_equal(flats[0][v], flats[1][v])
+    for sid, (w, ys, xs, n) in enumerate(meta):
+        for p in range(n):
+            host = M._subsample(m.slots[sid]["canvas"], int(xs[p]), int(ys[p]), w, o)
+            np.testing.assert_array_equal(flats[0][sid * m.P + p, : o * o].reshape(o, o), host)

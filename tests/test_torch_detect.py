@@ -307,7 +307,7 @@ def test_batch_and_stream_fall_back_image_by_image(monkeypatch, pair):
 
 def test_unported_branches_raise(pair, monkeypatch):
     m, grays, jres, jraw, tdet, imgs, dims = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A.12"):
         tdet.detect_batch(grays, mesh=object())
     # the canvas-bucket tail of banded plans (the JAX package's mxu_tail.py)
     monkeypatch.setenv("JDA_TPU_BUCKETS", "default")
@@ -315,3 +315,20 @@ def test_unported_branches_raise(pair, monkeypatch):
     with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
         tdet._plan_windows(("t",), 64, 96, z, z, z + 24, [(24, 2, 1, 1)],
                            rounding=True, origins=[(0, 0)])
+
+
+@pytest.mark.parametrize("tail", ["mxu", "canvas"])
+def test_tail_other_than_gather_raises(pair, monkeypatch, tail):
+    """JDA_TPU_TAIL selects the JAX package's canvas tail (ops/mxu_tail.py),
+    which is not ported: read at every call, it is refused instead of
+    running the gather tail, also where the plan is cached already; an
+    explicit 'gather' runs."""
+    m, grays, jres, jraw, tdet, imgs, dims = pair
+    tdet.detect_batch(grays[:1], th=TH)  # the plan is cached
+    monkeypatch.setenv("JDA_TPU_TAIL", tail)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
+        tdet.detect_batch(grays[:1], th=TH)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
+        tdet._plan(32, 48, 1.25, 24, 32)
+    monkeypatch.setenv("JDA_TPU_TAIL", "gather")
+    _same(tdet.detect_batch(grays[:1], th=TH)[0], jres[0])

@@ -76,3 +76,18 @@ def test_training_entry_points_default_device_without_cuda_raises(monkeypatch):
     with pytest.raises(NotImplementedError, match="A.12"):
         Trainer(c, mesh=object(), device="cpu")
     assert Trainer(c, device="cpu").device.type == "cpu"
+
+
+def test_canvas_miner_default_device(monkeypatch):
+    """CanvasHardMiner, like the trainer that builds it, runs on CUDA unless
+    given another device, and without CUDA its default raises."""
+    from jda_tpu_torch.data import NegGenerator
+    from jda_tpu_torch.train.mining import CanvasHardMiner
+
+    c = jda_tpu_torch.Config(T=1, K=8, landmark_n=5)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert CanvasHardMiner(NegGenerator(c), c).device.type == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CanvasHardMiner(NegGenerator(c), c)
+    assert CanvasHardMiner(NegGenerator(c), c, device="cpu").device.type == "cpu"

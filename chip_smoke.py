@@ -95,13 +95,28 @@ Phases, each fatal on failure:
      scores and shapes, the difficulty, the cursors and the random stream
      equal; at least two mining events, a later one under the scan cut;
      each top-up timed (windows or candidates screened per second, host
-     render, host rebuild and revalidation, the difficulty after it).
+     render, host rebuild and revalidation, the difficulty after it);
+ 20. the multi-device paths (jda_tpu_torch.entry.run_on_mesh: spawned
+     processes, one per rank, a 1-D "dp" DeviceMesh), each run fatal on
+     failure: (a) one rank over NCCL, Trainer(mesh=) on phase 17's 16,384
+     faces: every model field equal to phase 17's, W included, live masks
+     and the random stream too; seconds per cart against phase 17's, the
+     collectives' count, bytes and share of a node, the largest exact sum;
+     (b) two ranks on the one card over gloo, Trainer(mesh=) on phase 16's
+     1,024 faces: both equal to phase 16's card model in every field, W
+     included; (c) detect_batch(mesh=) at one rank over NCCL on phase 3's
+     VGA B=16 batch at full width, bit-equal to phase 3's results with two
+     `dense0_filter` launches, and on 17 VGA images at two ranks over gloo,
+     equal to the same images without a mesh, two launches per rank; (d)
+     dryrun_multichip(1) (NCCL) and dryrun_multichip(2, backend="gloo").
 
 The last lines are the card (nvidia-smi name and power limit), a
 {"kernels": [...]} JSON line, and {"ok": true, "device": {...}}.  Without a
 CUDA device it exits non-zero and prints no result.
 """
 
+import copy
+import functools
 import json
 import os
 import statistics
@@ -756,7 +771,8 @@ def device_busy(run):
 def train_phases(dev, card):
     """Phases 16-18: the trainer at the flagship width on the card against
     the CPU, timed at the flagship's corpus size, and the trained model in
-    the C++-semantics detector.  Returns dense0_filter's launches in 18."""
+    the C++-semantics detector.  Returns the two kernels' launches in 18
+    and the card runs of phases 16 and 17 (model, live masks, next draw)."""
     import torch
     import jda_tpu_torch as jt
     from jda_tpu_torch.cascador import CppDetector
@@ -790,8 +806,11 @@ def train_phases(dev, card):
                        ("mined rows", a.neg.imgs, b.neg.imgs)):
         if x.shape != y.shape or not np.array_equal(x, y):
             raise AssertionError(f"[16] training: {name} differ, card vs CPU")
-    if a.rng.integers(1 << 62) != b.rng.integers(1 << 62):
+    draw16 = a.rng.integers(1 << 62)
+    if draw16 != b.rng.integers(1 << 62):
         raise AssertionError("[16] training: the random streams diverged")
+    ref16 = dict(model=a.model, pos_live=a.pos.live, neg_live=a.neg.live, next_draw=draw16,
+                 seconds=ta)
     st = a.stats["stages"][0]
     if not (np.isfinite(a.model.W).all() and w_max > 0 and st["mean_error"] < st["mean_error_before"]):
         raise AssertionError(f"[16] training: regression did not fit ({st})")
@@ -819,6 +838,10 @@ def train_phases(dev, card):
     st = tr.stats["stages"][0]
     path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_"), "trained.model")
     jt.save_model(tr.model, path, dtype="double")
+    ref17 = dict(model=copy.deepcopy(tr.model), pos_live=tr.pos.live.copy(),
+                 neg_live=tr.neg.live.copy(),
+                 next_draw=copy.deepcopy(tr.rng).integers(1 << 62), carts=list(carts),
+                 nodes=list(nodes))
     # one more cart step, profiled (the model is saved: cart 539 may change)
     DataSet.update_weights(tr.pos, tr.neg)
 
@@ -877,7 +900,7 @@ def train_phases(dev, card):
         f"dense0_image) {launches}, boxes per image {[len(r[0]) for r in res]}; bit-equal "
         f"to the CPU port ({cpu_s:.1f} s); "
         f"done in {time.perf_counter() - t0:.1f} s")
-    return launches
+    return launches, {16: ref16, 17: ref17}
 
 
 HARD_FIRST_CART = 536  # phase 19 starts at cursor (0, 535): carts 536..539 are trained
@@ -1057,6 +1080,107 @@ def hard_pool_phase(card):
         if saved is not None:
             os.environ["JDA_TPU_CANVAS_MINER"] = saved
     log(f"[19] done in {time.perf_counter() - t0:.1f} s")
+
+
+def same_state(got, want, what):
+    """Every model field, W included, the live masks and the next draw."""
+    for f in ("scale", "lmk1", "lmk2", "off1", "off2", "feat_th", "leaf_scores",
+              "cart_th", "mean", "std", "mean_shape", "W"):
+        if not np.array_equal(getattr(got["model"], f), getattr(want["model"], f)):
+            d = np.abs(getattr(got["model"], f) - getattr(want["model"], f)).max()
+            raise AssertionError(f"{what}: model field {f} differs (max |diff| {d})")
+    for k in ("pos_live", "neg_live", "next_draw"):
+        if not np.array_equal(got[k], want[k]):
+            raise AssertionError(f"{what}: {k} differs")
+
+
+def mesh_phase(card, model, vga, one, refs):
+    """Phase 20: the multi-device paths on the card, each group a spawn of
+    jda_tpu_torch.entry.run_on_mesh.  Returns dense0_filter's launches per
+    rank in the detect_batch(mesh=) runs (one rank NCCL, two ranks gloo)."""
+    import torch
+    import jda_tpu_torch as jt
+    from jda_tpu_torch.entry import dryrun_multichip, run_each, run_on_mesh
+    from jda_tpu_torch.train.boost import empty_model
+    from jda_tpu_torch.train.dryrun import detect_on_mesh, train_on_mesh
+
+    c = jt.Config(**FLAGSHIP_T1)
+    bgs = [make_image(480, 640, seed=500 + i) for i in range(12)]
+    start = empty_model(c)
+    start.cart_idx = FIRST_CART - 1
+    train = functools.partial(train_on_mesh, model=start, mining_max_batches=2000,
+                              mining_batch=2048)
+    detect = functools.partial(detect_on_mesh, **BENCH_KW)
+
+    # -- 20 (a) + (c): one rank over NCCL ----------------------------------------------
+    t0 = time.perf_counter()
+    rows, gts = train_corpus(16384, c, seed=2)
+    (tr1, det1), = run_on_mesh(run_each, 1, [(train, (c, rows, gts, bgs)),
+                                             (detect, (model, vga[:16]))], limit=900)
+    same_state(tr1, refs[17], "[20a] one rank over NCCL against phase 17")
+    carts = [x["seconds"] for x in tr1["stats"]["carts"]]
+    nodes = tr1["stats"]["nodes"]
+    col = tr1["collectives"]
+    split = [col["classification"], col["regression"]]
+    split_s = sum(x["seconds"] for x in split)
+    split_n = sum(x["collectives"] for x in split)
+    split_b = sum(x["bytes"] for x in split)
+    log(f"[20a] {card}: Trainer(mesh=) at one rank over NCCL, flagship geometry, 16384 "
+        f"faces, carts {FIRST_CART}..{c.K - 1}: every model field equal to phase 17's, W "
+        f"included; live masks and the random stream equal; {tr1['seconds']:.1f} s; per "
+        f"cart median {statistics.median(carts):.3f} s (phase 17 "
+        f"{statistics.median(refs[17]['carts']):.3f} s), split search per node median "
+        f"{1e3 * statistics.median(nodes):.2f} ms (phase 17 "
+        f"{1e3 * statistics.median(refs[17]['nodes']):.2f} ms)")
+    log(f"[20a] {card}: collectives of the split search (CUDA events around each "
+        f"all-reduce): {split_n} all-reduces over {len(nodes)} nodes = "
+        f"{split_n / len(nodes):.2f} per node, {split_b / len(nodes):.4g} bytes per node, "
+        f"{1e3 * split_s / len(nodes):.3f} ms per node = {split_s / sum(nodes):.4f} of the "
+        f"nodes' time; descend {col['descend']}, ridge {col['ridge']}; largest |exact sum| "
+        f"{tr1['max_abs_sum']:.6g} residual units (exact below 2^14 = 16384)")
+    if det1["launches"] != (2, 0):
+        raise AssertionError(f"[20c] detect_batch(mesh=), one rank: launches {det1['launches']}")
+    for i, (x, y) in enumerate(zip(det1["results"], one)):
+        same_result(x, y, f"[20c] one rank over NCCL, image {i}: differs from phase 3")
+    log(f"[20c] detect_batch(mesh=) at one rank over NCCL, VGA B=16: bit-equal to phase 3's "
+        f"results, launches (dense0_filter, dense0_image) {det1['launches']}; (a) and (c) "
+        f"done in {time.perf_counter() - t0:.1f} s")
+
+    # -- 20 (b) + (c): two ranks on the one card over gloo ------------------------------
+    t0 = time.perf_counter()
+    rows, gts = train_corpus(1024, c, seed=1)  # phase 16's faces
+    want17 = jt.Detector(model).detect_batch(vga[:17], **BENCH_KW)
+    ranks = run_on_mesh(run_each, 2, [(train, (c, rows, gts, bgs)),
+                                      (detect, (model, vga[:17]))],
+                        backend="gloo", limit=900)
+    for r, (tr2, det2) in enumerate(ranks):
+        same_state(tr2, refs[16], f"[20b] rank {r} of 2 over gloo against phase 16's card run")
+        if det2["launches"] != (2, 0):
+            raise AssertionError(f"[20c] rank {r} of 2: launches {det2['launches']}")
+        for i, (x, y) in enumerate(zip(det2["results"], want17)):
+            same_result(x, y, f"[20c] rank {r} of 2 over gloo, image {i}: differs from no mesh")
+        if len(det2["results"]) != 17:
+            raise AssertionError(f"[20c] rank {r} of 2: {len(det2['results'])} results")
+    col = ranks[0][0]["collectives"]
+    log(f"[20b] Trainer(mesh=) at two ranks over gloo on one card, 1024 faces: both equal to "
+        f"phase 16's card model in every field, W included, and to its live masks and random "
+        f"stream; {ranks[0][0]['seconds']:.1f} / {ranks[1][0]['seconds']:.1f} s (phase 16's "
+        f"card run alone {refs[16]['seconds']:.1f} s); collectives: classification {col['classification']}, "
+        f"regression {col['regression']}, descend {col['descend']}, ridge {col['ridge']}")
+    log(f"[20c] detect_batch(mesh=) at two ranks over gloo, 17 VGA images: each rank equal "
+        f"to the batch without a mesh, launches per rank "
+        f"{[d['launches'] for _, d in ranks]}; (b) and (c) done in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # -- 20 (d): the dry runs ----------------------------------------------------------
+    t0 = time.perf_counter()
+    d1 = dryrun_multichip(1)
+    d2 = dryrun_multichip(2, backend="gloo")
+    log(f"[20d] dryrun_multichip(1) over NCCL and (2) over gloo on the card: windows "
+        f"{d1[0]['windows']} / {d2[0]['windows']}, boxes {d1[0]['boxes']} / "
+        f"{d2[0]['boxes']}; done in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    return {"nccl_1": [det1["launches"][0]], "gloo_2": [d["launches"][0] for _, d in ranks]}
 
 
 def main() -> int:
@@ -1462,8 +1586,9 @@ def main() -> int:
     del out_vga, scr_vga, out_hd, scr_hd
 
     cpp = cpp_phases(dev, depth, ms_loaded)
-    trained_launches = train_phases(dev, card)
+    trained_launches, train_refs = train_phases(dev, card)
     hard_pool_phase(card)
+    mesh_launches = mesh_phase(card, model, vga, one, train_refs)
     log("the times of both kernels' first versions are in PERF.md's kernel table")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
@@ -1480,6 +1605,8 @@ def main() -> int:
         # each C++ path's own run, counts set to 0 just before it
         "launches_cpp": {k: v[0] for k, v in cpp["paths"].items()},
         "launches_trained_model": trained_launches[0],
+        # detect_batch(mesh=) per rank (phase 20), counts set to 0 just before
+        "launches_mesh": mesh_launches,
         "max_abs_err": max(err, cpp["err"]),
         "ms": statistics.median([ms, ms2]),
         "head_ms": head_ms,

@@ -39,7 +39,7 @@ from jda_tpu_torch.ops import dense0 as D0
 from jda_tpu_torch.ops import fused as F
 from jda_tpu_torch.ops import nms as NMS
 from jda_tpu_torch.ops import resize as R
-from jda_tpu_torch.utils import resolve_device
+from jda_tpu_torch.utils import block, dp_mesh, resolve_device, same_device
 
 
 @dataclasses.dataclass
@@ -152,8 +152,9 @@ class Detector:
     depends only on the (unchanged within a stage) shape, and the score
     chain recomputes the identical float sequence from zero.
 
-    Not ported yet: `mesh=` (multi-GPU detection, ROADMAP A.12), which
-    raises NotImplementedError naming it.
+    `detect_batch(mesh=)` splits a batch over the ranks of a 1-D
+    torch.distributed DeviceMesh ("dp", one process per device): each rank
+    runs its part on its own card and every rank returns the whole list.
     """
 
     SLAB = 1 << 16  # windows per prefilter pass (bounds temp memory)
@@ -636,11 +637,23 @@ class Detector:
         detection, since windows never read outside their own image.
         Models the fused path does not serve (multi-scale, T == 0, or
         JDA_TPU_FUSED=0) fall back to per-image detection.
+
+        `mesh` (a 1-D DeviceMesh over "dp"; every rank calls with the same
+        images, its detector on its rank's device) splits the batch into
+        contiguous parts of ceil(B / ranks) images, each rank runs its part
+        through the plan of the whole batch's canonical size, and one
+        all_gather_object hands every rank all results in input order.  The
+        per-image fallback ignores `mesh`, as the JAX package does.
         """
+        part, group, nd = slice(None), None, 1
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (multi-device detection) is not ported yet (ROADMAP A.12)"
-            )
+            group, rank, nd, device = dp_mesh(mesh)
+            if not same_device(device, self.device):
+                raise ValueError(
+                    f"the detector's device {self.device} is not this rank's "
+                    f"mesh device {device}"
+                )
+            part = block(len(grays), nd, rank)
         if th is None:
             th = self.final_th_default
         if not self._fused_enabled():
@@ -657,8 +670,16 @@ class Detector:
         plan = self._plan(Hc, Wc, scale, min_size, ms_c)
         if plan["n"] == 0:
             return [_empty(self.params.landmark_n) for _ in grays]
-        out = self._run(plan, grays, len(grays))
-        return self._harvest_batch(plan, out, len(grays), th, nms_overlap)
+        mine = grays[part]
+        results = []
+        if mine:
+            out = self._run(plan, mine, len(mine))
+            results = self._harvest_batch(plan, out, len(mine), th, nms_overlap)
+        if group is None:
+            return results
+        parts = [None] * nd
+        torch.distributed.all_gather_object(parts, results, group=group)
+        return [r for p in parts for r in p]
 
     def detect_stream(
         self,

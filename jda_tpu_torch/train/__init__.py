@@ -5,8 +5,8 @@ reference's OpenMP training loop (btcart.cpp, cart.cpp, data.cpp): feature
 matrices are batched two-pixel gathers, the split search is a scatter-add
 histogram and a masked reduction, the global regression is a closed-form
 ridge solve, and hard-negative mining screens windows on the device.
-Multi-device training (the JAX package's sharded trainer and its dry run)
-is not ported yet.
+Multi-device training shards the samples over a torch.distributed
+DeviceMesh (train/sharded.py; its dry runs in train/dryrun.py).
 """
 
 from jda_tpu_torch.train.features import (
@@ -21,6 +21,7 @@ from jda_tpu_torch.train.split import (
     regression_split,
     leaf_scores,
 )
+from jda_tpu_torch.train.dryrun import sharded_train_step_dryrun
 
 __all__ = [
     "FeaturePool",
@@ -31,4 +32,5 @@ __all__ = [
     "classification_split_from_hists",
     "regression_split",
     "leaf_scores",
+    "sharded_train_step_dryrun",
 ]

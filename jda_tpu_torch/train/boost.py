@@ -14,6 +14,9 @@ the trainer's device:
   * global regression: train/regression.py (normal equations, Cholesky)
   * hard-negative validation: the partial cascade over mined windows
     (train/mining.py screens them on the device)
+  * multi-device: with `mesh=`, the split search, the descent and the
+    ridge's normal equations are split over the sample axis
+    (train/sharded.py); everything else runs whole on every rank
 
 Determinism: one np.random.Generator drives pool sampling, coin flips,
 percentiles and mining shifts, drawn in the JAX package's order and sizes,
@@ -36,7 +39,13 @@ from jda_tpu_torch.params import CascadeParams, save_model
 from jda_tpu_torch.train import features as FT
 from jda_tpu_torch.train import regression as RG
 from jda_tpu_torch.train import split as SP
-from jda_tpu_torch.utils import calc_mean_error, draw_density_graph, log, resolve_device
+from jda_tpu_torch.utils import (
+    calc_mean_error,
+    draw_density_graph,
+    log,
+    resolve_device,
+    same_device,
+)
 
 Tensor = torch.Tensor
 
@@ -69,8 +78,17 @@ def empty_model(c: Config) -> CascadeParams:
 
 class Trainer:
     """Joint cascade trainer (the `jda train` / `jda resume` workloads).
-    Runs on CUDA unless given `device`; `mesh=` (multi-device training) is
-    not ported yet."""
+    Runs on CUDA unless given `device`.
+
+    `mesh=` (a 1-D torch.distributed DeviceMesh over "dp", one process per
+    device) shards the samples of the split search, the descent and the
+    ridge over the ranks (train/sharded.py); the trainer then runs on its
+    rank's device, and a `device` that names another raises.  Mining,
+    validation, the canvas miner and the hard factory stay replicated:
+    every rank runs them whole.  So every rank must be started with the
+    same config, data and seed: each host decision then reads only values
+    that a collective handed to all ranks alike, and every rank holds the
+    same model and state.  Only rank 0 writes snapshots."""
 
     def __init__(
         self,
@@ -79,11 +97,19 @@ class Trainer:
         mesh=None,
         device: Union[str, torch.device, None] = None,
     ):
+        self.ops = None
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (multi-device training) is not ported yet (ROADMAP A.12)"
-            )
-        self.device = resolve_device(device)
+            from jda_tpu_torch.train.sharded import ShardedOps
+
+            self.ops = ShardedOps(mesh)
+            if device is not None and not same_device(self.ops.device, device):
+                raise ValueError(
+                    f"device={device} disagrees with this rank's mesh device "
+                    f"{self.ops.device}"
+                )
+            self.device = self.ops.device
+        else:
+            self.device = resolve_device(device)
         self.c = c
         self.model = model if model is not None else empty_model(c)
         self.rng = np.random.default_rng(c.seed)
@@ -185,19 +211,24 @@ class Trainer:
 
     def _descend(self, ds: DataSet, idx: np.ndarray, t: int, k0: int, k1: int):
         """Host (leaves [m, C], leaf scores [m, C]) of carts [k0, k1) on
-        corpus rows idx: the detection tail's descent, C++ rounding."""
+        corpus rows idx: the detection tail's descent, C++ rounding; on a
+        mesh each rank descends its slab and the rows are gathered."""
         it = self._tensor(idx, np.int64)
+        if self.ops is not None:
+            it = it[self.ops.shard(len(idx))]
         state = {"shape": ds.shapes_dev()[it], **self._geometry(ds, it)}
         stp = ds.stp_dev()
-        leaves, b = C.carts_descend(
-            self._model_chunk(t, k0, k1),
-            ds.flat_dev(),
-            state,
+        args = (self._model_chunk(t, k0, k1), ds.flat_dev(), state)
+        kw = dict(
             depth=self.c.tree_depth,
             rounding=True,  # C++ training semantics (data.cpp:48-51)
             single_scale=self.single_scale,
             stp=stp[it] if stp is not None else None,
         )
+        if self.ops is None:
+            leaves, b = C.carts_descend(*args, **kw)
+        else:
+            leaves, b = self.ops.descend(*args, len(idx), **kw)
         return leaves.cpu().numpy(), b.cpu().numpy()
 
     # -- cart training (Cart::Train + SplitNode DFS, cart.cpp:41-162) ----------
@@ -250,11 +281,11 @@ class Trainer:
             ip, ineg = rows_p.pop(node), rows_n.pop(node)
             pool = pools[node - 1]
             pool_dev = pool.device(self.device)
-            vp = self._values(pos, ip, pool_dev)
-            vn = self._values(neg, ineg, pool_dev)
             if len(ip) == 0 and len(ineg) == 0:
-                f_idx, th = 0, -256
-            else:
+                f_idx, th, col_p, col_n = 0, -256, ip, ineg  # empty columns
+            elif self.ops is None:
+                vp = self._values(pos, ip, pool_dev)
+                vn = self._values(neg, ineg, pool_dev)
                 ones_p = torch.ones(len(ip), dtype=torch.bool, device=self.device)
                 if clsflags[node - 1]:
                     ones_n = torch.ones(len(ineg), dtype=torch.bool, device=self.device)
@@ -266,6 +297,21 @@ class Trainer:
                         vp, resid[ip], has_gt[ip], ones_p, self._tensor(us[node - 1])
                     )
                 f_idx, th = int(f), int(thd)
+                col_p, col_n = vp[:, f_idx], vn[:, f_idx]
+            else:
+                # this rank's slab of the node's rows
+                sp, sn = ip[self.ops.shard(len(ip))], ineg[self.ops.shard(len(ineg))]
+                vp = self._values(pos, sp, pool_dev)
+                vn = self._values(neg, sn, pool_dev)
+                if clsflags[node - 1]:
+                    f_idx, th, _, col_p, col_n = self.ops.classification_split(
+                        vp, wp[sp], vn, wn[sn], len(ip), len(ineg)
+                    )
+                else:
+                    f_idx, th, _, col_p, col_n = self.ops.regression_split(
+                        vp, resid[sp], has_gt[sp], self._tensor(us[node - 1]), vn,
+                        len(ip), len(ineg),
+                    )
             ni = node - 1  # heap index 1..7 -> storage 0..6
             sc, l1, l2, o1, o2 = pool.select(f_idx)
             m.scale[t, k, ni] = sc
@@ -274,8 +320,8 @@ class Trainer:
             m.off1[t, k, ni] = o1
             m.off2[t, k, ni] = o2
             m.feat_th[t, k, ni] = th
-            left_p = vp[:, f_idx] <= th
-            left_n = vn[:, f_idx] <= th
+            left_p = col_p <= th
+            left_n = col_n <= th
             rows_p[2 * node], rows_p[2 * node + 1] = ip[left_p], ip[~left_p]
             rows_n[2 * node], rows_n[2 * node + 1] = ineg[left_n], ineg[~left_n]
             self.stats["nodes"].append(time.perf_counter() - t0)
@@ -633,7 +679,12 @@ class Trainer:
         )
         resid = pos.shape_residual(valid).astype(np.float32)
         t0 = time.perf_counter()
-        W = RG.ridge_lbf(pos_lbf[has_gt], resid, c.lbf_dim, device=self.device)
+        if self.ops is None:
+            W = RG.ridge_lbf(pos_lbf[has_gt], resid, c.lbf_dim, device=self.device)
+        else:
+            from jda_tpu_torch.train.sharded import ridge_lbf_sharded
+
+            W = ridge_lbf_sharded(self.ops, pos_lbf[has_gt], resid, c.lbf_dim)
         ridge_s = time.perf_counter() - t0
         self.model.W[t] = W
 
@@ -693,7 +744,9 @@ class Trainer:
         return self.model
 
     def snapshot(self, stage_done: bool = False) -> None:
-        if not self.snapshot_dir:
+        """Model and corpus files in snapshot_dir; on a mesh, rank 0's
+        (every rank holds the same state)."""
+        if not self.snapshot_dir or (self.ops is not None and self.ops.rank != 0):
             return
         os.makedirs(self.snapshot_dir, exist_ok=True)
         tag = time.strftime("%Y%m%d-%H%M%S")

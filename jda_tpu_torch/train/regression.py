@@ -38,6 +38,46 @@ def _check_no_tf32(device: torch.device) -> None:
         )
 
 
+def quantize_residuals(residual: np.ndarray) -> np.ndarray:
+    """float32 residuals on the fixed 2^-10 grid: the normal-equation sums
+    are then exact in any order and partition."""
+    q = np.float32(1 << RESID_FRAC_BITS)
+    return np.round(residual.astype(np.float32) * q) / q
+
+
+def normal_equations(
+    leaves: np.ndarray,  # [n, K] global leaf indices
+    residual: np.ndarray,  # [n, 2L] float32 on the residual grid
+    F: int,
+    device: torch.device,
+    chunk: int = 8192,
+):
+    """(A = E^T E [F, F], b = E^T r [F, 2L]) float32 of the one-hot LBF
+    rows E, accumulated in chunks of `chunk` rows."""
+    _check_no_tf32(device)
+    lv = torch.as_tensor(np.ascontiguousarray(leaves, np.int64), device=device)
+    rs = torch.as_tensor(residual, device=device)
+    A = torch.zeros((F, F), dtype=torch.float32, device=device)
+    b = torch.zeros((F, rs.shape[1]), dtype=torch.float32, device=device)
+    for s0 in range(0, len(lv), chunk):
+        s1 = min(s0 + chunk, len(lv))
+        E = torch.zeros((s1 - s0, F), dtype=torch.float32, device=device)
+        E.scatter_(1, lv[s0:s1], 1.0)
+        A += E.T @ E
+        b += E.T @ rs[s0:s1]
+    return A, b
+
+
+def _solve(A: torch.Tensor, b: torch.Tensor, lam: float) -> np.ndarray:
+    """W [F, 2L] float64 of (A + lam I) W = b by one Cholesky solve."""
+    F = A.shape[0]
+    A = A + torch.tensor(lam, dtype=torch.float32, device=A.device) * torch.eye(
+        F, dtype=torch.float32, device=A.device
+    )
+    W = torch.cholesky_solve(b, torch.linalg.cholesky(A))
+    return W.cpu().numpy().astype(np.float64)
+
+
 def ridge_lbf(
     leaves: np.ndarray,  # [N, K] global leaf indices (k*leaf_n + leaf)
     residual: np.ndarray,  # [N, 2L]
@@ -48,27 +88,10 @@ def ridge_lbf(
 ) -> np.ndarray:
     """Solve the LBF ridge regression on `device`; returns W [F, 2L]
     float64."""
-    device = torch.device(device)
-    _check_no_tf32(device)
     n = len(leaves)
     if lam is None:
         lam = n / 2.0  # liblinear C = 1/n  =>  lam = 1/(2C)
-    # fixed-point residuals make the normal-equation sums exact
-    q = np.float32(1 << RESID_FRAC_BITS)
-    residual = np.round(residual.astype(np.float32) * q) / q
-    lv = torch.as_tensor(np.ascontiguousarray(leaves, np.int64), device=device)
-    rs = torch.as_tensor(residual, device=device)
-    A = torch.zeros((F, F), dtype=torch.float32, device=device)
-    b = torch.zeros((F, rs.shape[1]), dtype=torch.float32, device=device)
-    for s0 in range(0, n, chunk):
-        s1 = min(s0 + chunk, n)
-        E = torch.zeros((s1 - s0, F), dtype=torch.float32, device=device)
-        E.scatter_(1, lv[s0:s1], 1.0)
-        A += E.T @ E
-        b += E.T @ rs[s0:s1]
-    A += torch.tensor(lam, dtype=torch.float32, device=device) * torch.eye(
-        F, dtype=torch.float32, device=device
+    A, b = normal_equations(
+        leaves, quantize_residuals(residual), F, torch.device(device), chunk
     )
-    L = torch.linalg.cholesky(A)
-    W = torch.cholesky_solve(b, L)
-    return W.cpu().numpy().astype(np.float64)
+    return _solve(A, b, lam)

@@ -186,32 +186,51 @@ def regression_split(
     exact fixed-point sums (S_l, n_l) alone.
     """
     pos_n = valid_pos.sum()
-    residual = quantize_residual(residual)
-
-    # the k-th order statistic from the count histogram: values are ints
-    # in [-255, 255], so sorted_vals[k] is the first bin whose cumulative
-    # count reaches k + 1
     _, cnt = _hists(vals_pos, torch.zeros_like(valid_pos, dtype=torch.float32), valid_pos)
-    k = (pos_n.to(torch.float32) * u).to(torch.int32)  # trunc
+    th = percentile_thresholds(cnt, pos_n.to(torch.float32), u)
+    gtv = (has_gt & valid_pos).to(torch.float32)  # [Mp]
+    sums = regression_sums(vals_pos, quantize_residual(residual), gtv, th)
+    return regression_decision(th, sums, pos_n)
+
+
+def percentile_thresholds(cnt: Tensor, pos_n: Tensor, u: Tensor) -> Tensor:
+    """[F] int32 thresholds: each feature's k-th order statistic, k =
+    trunc(pos_n * u), from its [F, 511] count histogram.  Values are ints
+    in [-255, 255], so sorted_vals[k] is the first bin whose cumulative
+    count reaches k + 1."""
+    k = (pos_n * u).to(torch.int32)  # trunc
     cum = cnt.cumsum(1)  # [F, 511]
     th = (cum >= (k + 1)[:, None].to(torch.float32)).to(torch.uint8).argmax(1)
-    th = th.to(torch.int32) - 255
+    return th.to(torch.int32) - 255
 
-    gtv = (has_gt & valid_pos).to(torch.float32)  # [Mp]
-    left = (vals_pos <= th[None, :]).to(torch.float32) * gtv[:, None]
 
-    n_tot = gtv.sum()
-    nl = left.sum(0)  # [F]
-    nr = n_tot - nl
+def regression_sums(vals: Tensor, residual_q: Tensor, gtv: Tensor, th: Tensor) -> Tensor:
+    """The objective's sufficient statistics over rows `vals`, packed as
+    one float32 vector [nl (F), S_l x (F), S_l y (F), n_tot, S_tot x,
+    S_tot y]: left-side counts and residual sums per feature at threshold
+    th, and the totals, over the rows with gtv = 1.  Residuals on the
+    2^-10 grid make every entry an exact sum, so partial vectors of any
+    partition of the rows add up to the whole one."""
+    left = (vals <= th[None, :]).to(torch.float32) * gtv[:, None]
+    parts = [left.sum(0)]
+    parts += [(left * residual_q[:, d : d + 1]).sum(0) for d in range(2)]
+    parts.append(gtv.sum()[None])
+    parts += [(gtv * residual_q[:, d]).sum()[None] for d in range(2)]
+    return torch.cat(parts)
+
+
+def regression_decision(th: Tensor, sums: Tensor, pos_n: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """(feature, threshold, metric) from the thresholds and the summed
+    statistics of regression_sums; no positives sends every sample right
+    (feature 0, threshold -256)."""
+    F = th.shape[0]
+    nl = sums[:F]
     metric = regression_metric_from_sums(
-        *[
-            ((left * residual[:, d : d + 1]).sum(0), (gtv * residual[:, d]).sum())
-            for d in range(2)
-        ],
+        (sums[F : 2 * F], sums[3 * F + 1]),
+        (sums[2 * F : 3 * F], sums[3 * F + 2]),
         nl=nl,
-        nr=nr,
+        nr=sums[3 * F] - nl,
     )
-
     f_idx = metric.argmin()
     has = pos_n > 0
     out_f = torch.where(has, f_idx, torch.zeros_like(f_idx)).to(torch.int32)

@@ -2,9 +2,10 @@
 
 from __future__ import annotations
 
+import os
 import time
 from contextlib import contextmanager
-from typing import Sequence, Union
+from typing import Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -20,6 +21,55 @@ def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
             "available; pass device='cpu' to run the plain PyTorch path"
         )
     return torch.device("cuda" if device is None else device)
+
+
+def dp_mesh(mesh) -> Tuple[object, int, int, torch.device]:
+    """(process group, rank, world size, this rank's device) of a `mesh=`
+    argument: a 1-D torch.distributed DeviceMesh whose dimension is "dp",
+    one process per device.  Any other mesh raises.  On the card it selects
+    this rank's device (LOCAL_RANK where a launcher set it, else the global
+    rank modulo the cards), which NCCL's object collectives need."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(
+            f"mesh= takes a torch.distributed DeviceMesh, not {type(mesh).__name__}"
+        )
+    if mesh.ndim != 1 or tuple(mesh.mesh_dim_names or ()) != ("dp",):
+        raise ValueError(
+            'mesh= takes a 1-D DeviceMesh whose dimension is "dp", not shape '
+            f"{tuple(mesh.shape)} over {mesh.mesh_dim_names}"
+        )
+    group = mesh.get_group("dp")
+    rank = torch.distributed.get_rank(group)
+    nd = torch.distributed.get_world_size(group)
+    if mesh.device_type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", torch.distributed.get_rank()))
+        index = local % torch.cuda.device_count()
+        torch.cuda.set_device(index)
+        return group, rank, nd, torch.device("cuda", index)
+    return group, rank, nd, torch.device(mesh.device_type)
+
+
+def block(n: int, nd: int, rank: int) -> slice:
+    """Rank `rank`'s contiguous rows of n rows split over nd ranks as a
+    batch padded to a multiple of nd is: ceil(n / nd) rows per rank, pad
+    rows dropped (the last ranks' ranges may be short or empty)."""
+    per = -(-n // nd)
+    r0 = min(rank * per, n)
+    return slice(r0, min(r0 + per, n))
+
+
+def same_device(a: torch.device, b: Union[str, torch.device]) -> bool:
+    """Whether two devices name the same card (a CUDA device without an
+    index is the current one)."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    cur = torch.cuda.current_device()
+    return (a.index if a.index is not None else cur) == (b.index if b.index is not None else cur)
 
 
 def require_cv2(why: str):

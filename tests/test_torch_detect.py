@@ -307,7 +307,9 @@ def test_batch_and_stream_fall_back_image_by_image(monkeypatch, pair):
 
 def test_unported_branches_raise(pair, monkeypatch):
     m, grays, jres, jraw, tdet, imgs, dims = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP A.12"):
+    # mesh= is ported (tests/test_torch_sharded.py): what is not a
+    # DeviceMesh is refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tdet.detect_batch(grays, mesh=object())
     # the canvas-bucket tail of banded plans (the JAX package's mxu_tail.py)
     monkeypatch.setenv("JDA_TPU_BUCKETS", "default")

@@ -19,7 +19,8 @@ def test_import_pulls_in_no_jax():
         "import jda_tpu_torch, jda_tpu_torch.native, jda_tpu_torch.ops.fused, "
         "jda_tpu_torch.cascador, jda_tpu_torch.fddb, jda_tpu_torch.data, "
         "jda_tpu_torch.train, jda_tpu_torch.train.boost, jda_tpu_torch.train.mining, "
-        "jda_tpu_torch.cli, jda_tpu_torch.__main__, sys; "
+        "jda_tpu_torch.cli, jda_tpu_torch.__main__, jda_tpu_torch.entry, "
+        "jda_tpu_torch.train.sharded, jda_tpu_torch.train.dryrun, sys; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
         "'jda_tpu.')) or m == 'jda_tpu']; "
         "assert not bad, bad"
@@ -73,7 +74,7 @@ def test_training_entry_points_default_device_without_cuda_raises(monkeypatch):
         DeviceMiner(NegGenerator(c), c)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["--config", "/nonexistent.json", "train"])
-    with pytest.raises(NotImplementedError, match="A.12"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         Trainer(c, mesh=object(), device="cpu")
     assert Trainer(c, device="cpu").device.type == "cpu"
 
@@ -91,3 +92,17 @@ def test_canvas_miner_default_device(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         CanvasHardMiner(NegGenerator(c), c)
     assert CanvasHardMiner(NegGenerator(c), c, device="cpu").device.type == "cpu"
+
+
+def test_mesh_entry_points_default_device_without_cuda_raises(monkeypatch):
+    """entry(), dryrun_multichip and MeshRun run on CUDA unless given the
+    CPU; without CUDA their default raises before any process starts."""
+    from jda_tpu_torch import entry as E
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        E.entry()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        E.dryrun_multichip(2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        E.MeshRun(E.run_each, 2, [])

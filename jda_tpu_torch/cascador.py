@@ -157,7 +157,7 @@ class CppDetector:
         c = self.c
         key = ("fddb1", H, W, c.fddb_minimum_size, c.fddb_step,
                float(c.fddb_scale_factor))
-        plan = self.det._cached_plan(key)
+        plan = self.det._plans.get(key)
         if plan is None:
             x, y, win, scales = self._enumerate_m1(W, H)
             plan = self.det._plan_windows(
@@ -319,7 +319,7 @@ class CppDetector:
         origin, node tables shifted there."""
         c = self.c
         key = ("fddb0", Hc, Wc, c.img_o_size, c.fddb_step, float(c.fddb_scale_factor))
-        plan = self.det._cached_plan(key)
+        plan = self.det._plans.get(key)
         if plan is not None:
             return plan
         layout = self._m0_layout(Hc, Wc)

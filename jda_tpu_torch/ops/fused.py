@@ -1,24 +1,30 @@
 """Fused detection pipeline for single-scale models.
 
-PyTorch counterpart of the JAX package's `make_fused_fn`, and of the gather
-groups of its `make_fused_fn2` (banded canvases: the C++ path's method-0
-pyramids, with a canvas origin per scan grid).  One call runs the whole
-cascade over a batch of images,
+PyTorch counterpart of the JAX package's `make_fused_fn` and
+`make_fused_fn2`.  One call runs the whole cascade over a batch of images,
 
   1. the dense stage-0 filter over every scan scale (ops/dense0.py);
-  2. survivor compaction;
+  2. survivor compaction, per group of scales;
   3. the stage-0 leaves, read back from the filter's packed words (s0_lbf)
      or re-descended on the survivors, and the stage-0 regression;
-  4. stages 1..T-1, compacting after the first STAGE_SPLIT carts of each
-     stage (when K > 2*STAGE_SPLIT) and after each stage but the last.
+  4. stages 1..T-1, compacting after each stage but the last.
+
+Without `groups` (make_fused_fn) every scale is one gather pass that also
+compacts after the first STAGE_SPLIT carts of each stage (when K >
+2*STAGE_SPLIT).  With `groups` (make_fused_fn2, group_scales) each group
+of scales is compacted and run on its own: the canvas groups (window size
+<= S) through the canvas tail (ops/mxu_tail.py), the gather group (win >=
+GATHER_MIN) through the gather tail; both compact after each stage only.
+Banded canvases (the C++ path's method-0 pyramids) give each scan grid a
+canvas origin.
 
 Compaction has dynamic sizes (torch.nonzero), so `counts` are the true
 survivor counts and there are no lane budgets to overflow.  Every
 per-window float sequence (score chain, exact sequential regression) is
-the JAX package's, so results are bit-identical.  The final lanes are in
-ascending flat window id, as in both JAX programs under their default
-single gather group: per image, the C++ path's NMS breaks ties in that
-order.
+the JAX package's, so results are bit-identical.  Lanes come out group by
+group, each group's in ascending (image, window), as in both JAX
+programs: per image they are in ascending window id, the order in which
+the C++ path's NMS breaks ties.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import torch
 
 from jda_tpu_torch.ops import cascade as C
 from jda_tpu_torch.ops import dense0 as D0
+from jda_tpu_torch.ops import mxu_tail as MT
 
 Tensor = torch.Tensor
 
@@ -36,6 +43,8 @@ Tensor = torch.Tensor
 # rejection within a stage too, so compacting after the first SPLIT carts
 # roughly halves the lanes the remaining K - SPLIT carts pay for
 STAGE_SPLIT = 64
+
+GATHER_MIN = 257  # smallest win that stays on the gather tail
 
 
 def compact(alive: Tensor) -> Tuple[Tensor, int]:
@@ -50,6 +59,36 @@ def unpack_lbf(words: Tensor, K: int) -> Tensor:
     rep = words.repeat_interleave(D0.LBF_PER_WORD, dim=1)[:, :K]
     sh = (torch.arange(K, device=words.device) % D0.LBF_PER_WORD) * D0.LBF_BITS
     return (rep >> sh[None, :].to(words.dtype)) & ((1 << D0.LBF_BITS) - 1)
+
+
+def group_scales(
+    meta: Sequence[Tuple[int, int, int, int]],
+    buckets: Tuple[int, ...] = (32, 64, 128, 256),
+) -> Tuple[dict, ...]:
+    """Partition the scan ladder into canvas-bucket groups.
+
+    meta is in enumeration order (win ascending, c/jda.c:331-332), so each
+    group is a contiguous run of scales and a contiguous window-index
+    slice.  Returns dicts {S (canvas size; None = gather tail), si0, si1
+    (scale range), w0, w1 (flat window range)}.
+    """
+    offs = [0]
+    for _, _, ny, nx in meta:
+        offs.append(offs[-1] + ny * nx)
+    groups = []
+    si = 0
+    for S in buckets:
+        sj = si
+        while sj < len(meta) and meta[sj][0] <= S:
+            sj += 1
+        if sj > si:
+            groups.append({"S": S, "si0": si, "si1": sj, "w0": offs[si], "w1": offs[sj]})
+            si = sj
+    if si < len(meta):
+        groups.append(
+            {"S": None, "si0": si, "si1": len(meta), "w0": offs[si], "w1": offs[-1]}
+        )
+    return tuple(groups)
 
 
 def run_fused(
@@ -69,25 +108,30 @@ def run_fused(
     s0_lbf: bool = True,
     prepared: Optional[D0.ImageTables] = None,
     origins: Optional[Sequence[Tuple[int, int]]] = None,
+    groups: Optional[Sequence[dict]] = None,
 ) -> Dict[str, Tensor]:
     """Run the cascade over one batch.  `prepared` takes the dense filter's
     tables of this geometry (D0.prepare_image), which the caller keeps with
     its plan.
 
-    `origins` gives each scan grid a canvas origin (y0, x0) (banded scans,
-    make_fused_fn2): `xywin` and the tables are in canvas coordinates, and
-    a window is valid where it fits its band's content rectangle.  `dims`
-    may then be [B, S, 2], one (w, h) per band, band-local; [B, 2] dims
-    apply to every band.  Returns
+    `groups` (group_scales) runs make_fused_fn2's grouped pass; None runs
+    make_fused_fn's single gather pass.
+
+    `origins` gives each scan grid a canvas origin (y0, x0) (banded scans):
+    `xywin` and the tables are in canvas coordinates, and a window is
+    valid where it fits its band's content rectangle.  `dims` may then be
+    [B, S, 2], one (w, h) per band, band-local; [B, 2] dims apply to every
+    band.  Returns
 
       sel        [m] flat window id (b*n + w) of each final lane
       score, shape, alive, nvis   per final lane
-      counts     [c] survivor count at each compaction point
+      counts     [c] survivor count at each compaction point, group by group
       nvis_img   [B] exact per-image cart visits
       total_nvis scalar
     """
     B = imgs.shape[0]
     n = sum(ny * nx for _, _, ny, nx in meta)
+    K = dev["feat_th"].shape[1]
 
     # -- 1. dense stage-0 over all scales ------------------------------------
     dense = D0.stage0_filter_all_scales(
@@ -113,45 +157,18 @@ def run_fused(
         if dims.dim() == 3:
             wl, hl = dims[:, sidx, 0], dims[:, sidx, 1]
     ok = (x <= wl - win) & (y <= hl - win)
-    alive_flat = (alive_d & ok).reshape(-1)
+    alive_ok = alive_d & ok
     # per-image cart-visit bank (exact DetectionStatistic per image)
     nvis_img = torch.where(ok, nvis_d, 0).sum(1, dtype=torch.int32)
 
-    # -- 2. compaction of the stage-0 survivors -------------------------------
-    sel, count0 = compact(alive_flat)
-    w_idx = sel % n
-    base_o = (sel // n) * (H * W) + xywin[w_idx, 1].long() * W + xywin[w_idx, 0].long()
-    win_s = xywin[w_idx, 2]
-    state = C.init_state(
-        count0,
-        dev["mean_shape"],
-        torch.stack([base_o] * 3, dim=1),
-        torch.full((count0, 3), W, dtype=torch.int32, device=imgs.device),
-        torch.stack([win_s] * 3, dim=1),
-        torch.stack([win_s] * 3, dim=1),
-        torch.ones(count0, dtype=torch.bool, device=imgs.device),
-    )
-    state["score"] = score_d.reshape(-1)[sel]
-    state["nvis"] = nvis_d.reshape(-1)[sel]
-    # the dense nvis per lane: the tail banks only increments beyond it
-    state["dnvis"] = state["nvis"]
-
     flat_img = imgs.reshape(-1)
-    K = dev["feat_th"].shape[1]
-
-    # -- 3. stage-0 leaves and regression --------------------------------------
-    if s0_lbf:
-        leaves0 = unpack_lbf(dense[3].reshape(B * n, -1)[sel], K)
-    else:
-        leaves0, _ = C.carts_descend(
-            C.stage_params(dev, 0), flat_img, state, depth=depth,
-            rounding=rounding, single_scale=True,
-        )
-    state = C.apply_regression(dev["W"][0], leaves0, state, leaf_n=leaf_n)
-
-    counts = [count0]
-    sel_global = sel
-    split = K > 2 * STAGE_SPLIT
+    split = groups is None and K > 2 * STAGE_SPLIT
+    if groups is None:
+        groups = ({"S": None, "w0": 0, "w1": n},)
+    # compaction points of a group after its stage-0 one
+    n_points = (T - 1) * split + max(T - 2, 0)
+    counts = []
+    outs = []
 
     def bank_nvis(nvis_img, state, sel_global, mask):
         """Add masked lanes' post-dense visit increments to their own
@@ -162,7 +179,8 @@ def run_fused(
     def do_compact(state, sel_global, nvis_img, carried=None):
         lsel, cnt = compact(state["alive"])
         # lanes dropped here were rejected mid-tail: bank their post-dense
-        # visit increments before they disappear
+        # visit increments before they disappear (a canvas group's
+        # canvases go with their lanes)
         nvis_img = bank_nvis(nvis_img, state, sel_global, ~state["alive"])
         state = {k: v[lsel] for k, v in state.items()}
         sel_global = sel_global[lsel]
@@ -170,43 +188,113 @@ def run_fused(
         counts.append(cnt)
         return state, sel_global, nvis_img, carried
 
-    # -- 4. stages 1..T-1 -------------------------------------------------------
-    for t in range(1, T):
-        sp = C.stage_params(dev, t)
-        if split:
-            state, leavesA = C.run_cart_chunk(
-                {k: v[:STAGE_SPLIT] for k, v in sp.items()}, flat_img, state,
-                depth=depth, rounding=rounding, single_scale=True,
-            )
-            state, sel_global, nvis_img, leavesA = do_compact(
-                state, sel_global, nvis_img, leavesA
-            )
-            state, leavesB = C.run_cart_chunk(
-                {k: v[STAGE_SPLIT:] for k, v in sp.items()}, flat_img, state,
-                depth=depth, rounding=rounding, single_scale=True,
-            )
-            leaves = torch.cat([leavesA, leavesB], dim=1)
-        else:
-            state, leaves = C.run_cart_chunk(
-                sp, flat_img, state, depth=depth, rounding=rounding,
-                single_scale=True,
-            )
-        state = C.apply_regression(dev["W"][t], leaves, state, leaf_n=leaf_n)
-        if t < T - 1:
-            state, sel_global, nvis_img, _ = do_compact(
-                state, sel_global, nvis_img
+    for g in groups:
+        # -- 2. compaction of the group's stage-0 survivors ----------------------
+        w0, w1, S = g["w0"], g["w1"], g["S"]
+        ng = w1 - w0
+        sel, count0 = compact(alive_ok[:, w0:w1].reshape(-1))
+        counts.append(count0)
+        b_idx = sel // ng
+        w_idx = w0 + sel % ng
+        sel_global = b_idx * n + w_idx
+        wx, wy, ws = xywin[w_idx, 0], xywin[w_idx, 1], xywin[w_idx, 2]
+        if S is None:
+            state = C.init_state(
+                count0,
+                dev["mean_shape"],
+                torch.stack([b_idx * (H * W) + wy.long() * W + wx.long()] * 3, dim=1),
+                torch.full((count0, 3), W, dtype=torch.int32, device=imgs.device),
+                torch.stack([ws] * 3, dim=1),
+                torch.stack([ws] * 3, dim=1),
+                torch.ones(count0, dtype=torch.bool, device=imgs.device),
             )
 
-    # post-dense increments of every lane still resident after stage T-1
-    nvis_img = bank_nvis(
-        nvis_img, state, sel_global, torch.ones_like(state["alive"])
-    )
+            def run_chunk(chunk, state):
+                return C.run_cart_chunk(
+                    chunk, flat_img, state, depth=depth, rounding=rounding,
+                    single_scale=True,
+                )
+
+            def descend(chunk, state):
+                return C.carts_descend(
+                    chunk, flat_img, state, depth=depth, rounding=rounding,
+                    single_scale=True,
+                )
+
+        else:
+            L2 = dev["mean_shape"].shape[-1]
+            state = {
+                "shape": dev["mean_shape"].to(torch.float32).expand(count0, L2).clone(),
+                "alive": torch.ones(count0, dtype=torch.bool, device=imgs.device),
+                "pw": ws,
+                "canvas": MT.canvas_rows(flat_img, b_idx, wx, wy, H, W, S),
+            }
+
+            def run_chunk(chunk, state):
+                return MT.run_cart_chunk_canvas(
+                    chunk, state["canvas"], state, depth=depth, rounding=rounding
+                )
+
+            def descend(chunk, state):
+                return MT.descend_canvas(
+                    chunk, state["canvas"], state["pw"], state["shape"],
+                    depth=depth, rounding=rounding,
+                )
+
+        state["score"] = score_d.reshape(-1)[sel_global]
+        state["nvis"] = nvis_d.reshape(-1)[sel_global]
+        # the dense nvis per lane: the tail banks only increments beyond it
+        state["dnvis"] = state["nvis"]
+
+        if count0 == 0:  # nothing to run: the group's later counts are 0
+            counts.extend([0] * n_points)
+            outs.append((sel_global, state))
+            continue
+
+        # -- 3. stage-0 leaves and regression ----------------------------------
+        if s0_lbf:
+            leaves0 = unpack_lbf(dense[3].reshape(B * n, -1)[sel_global], K)
+        else:
+            leaves0, _ = descend(C.stage_params(dev, 0), state)
+        state = C.apply_regression(dev["W"][0], leaves0, state, leaf_n=leaf_n)
+
+        # -- 4. stages 1..T-1 ---------------------------------------------------
+        for t in range(1, T):
+            sp = C.stage_params(dev, t)
+            if split:
+                state, leavesA = run_chunk(
+                    {k: v[:STAGE_SPLIT] for k, v in sp.items()}, state
+                )
+                state, sel_global, nvis_img, leavesA = do_compact(
+                    state, sel_global, nvis_img, leavesA
+                )
+                state, leavesB = run_chunk(
+                    {k: v[STAGE_SPLIT:] for k, v in sp.items()}, state
+                )
+                leaves = torch.cat([leavesA, leavesB], dim=1)
+            else:
+                state, leaves = run_chunk(sp, state)
+            state = C.apply_regression(dev["W"][t], leaves, state, leaf_n=leaf_n)
+            if t < T - 1:
+                state, sel_global, nvis_img, _ = do_compact(
+                    state, sel_global, nvis_img
+                )
+                if not sel_global.numel():  # every lane rejected
+                    counts.extend([0] * ((T - 1 - t) * split + T - 2 - t))
+                    break
+
+        # post-dense increments of every lane still resident after stage T-1
+        nvis_img = bank_nvis(
+            nvis_img, state, sel_global, torch.ones_like(state["alive"])
+        )
+        outs.append((sel_global, state))
+
     return {
-        "sel": sel_global,
-        "score": state["score"],
-        "shape": state["shape"],
-        "alive": state["alive"],
-        "nvis": state["nvis"],
+        "sel": torch.cat([s for s, _ in outs]),
+        "score": torch.cat([st["score"] for _, st in outs]),
+        "shape": torch.cat([st["shape"] for _, st in outs]),
+        "alive": torch.cat([st["alive"] for _, st in outs]),
+        "nvis": torch.cat([st["nvis"] for _, st in outs]),
         "counts": torch.tensor(counts, dtype=torch.int32),
         "nvis_img": nvis_img,
         "total_nvis": nvis_img.sum(),

@@ -625,3 +625,55 @@ def test_truncation_synth_on_card(cuda, multi):
         for p in range(n):
             host = M._subsample(m.slots[sid]["canvas"], int(xs[p]), int(ys[p]), w, o)
             np.testing.assert_array_equal(flats[0][sid * m.P + p, : o * o].reshape(o, o), host)
+
+
+def test_canvas_tail_on_card_matches_cpu(cuda, cpu_det, monkeypatch):
+    """JDA_TPU_TAIL=mxu on the card, in both canvas modes: the canvases and
+    the detector bit-equal to the CPU, two `dense0_filter` launches per
+    fused batch; the ladder reaches the gather group (win >= 257) and the
+    last image's corner."""
+    from jda_tpu_torch.ops import mxu_tail as MT
+
+    rng = np.random.default_rng(9)
+    imgs = torch.from_numpy(rng.integers(0, 256, (2, 64, 96)).astype(np.uint8))
+    b = torch.tensor([0, 1, 1, 1])
+    x, y = torch.tensor([3, 72, 64, 40]), torch.tensor([5, 40, 32, 8])
+    want = MT.canvas_rows(imgs.reshape(-1), b, x, y, 64, 96, 32)
+    got = MT.canvas_rows(imgs.reshape(-1).to(cuda), b.to(cuda), x.to(cuda), y.to(cuda),
+                         64, 96, 32)
+    assert torch.equal(want[:, :24, :24], got.cpu()[:, :24, :24])
+
+    monkeypatch.setenv("JDA_TPU_TAIL", "mxu")
+    grays = [_img(300, 320, 1), _img(280, 300, 2)]
+    gdet = jt.Detector(cpu_det.params)
+    assert [g["S"] for g in gdet._groups(gdet._plan(300, 320, 1.25, 110, 300))] == [
+        128, 256, None]
+    want = cpu_det.detect_batch(grays, th=-5.0, min_size=110)
+    assert sum(r.n for r in want) > 0, "degenerate fixture"
+    for canvas in ("rows", "gather"):
+        monkeypatch.setenv("JDA_TPU_CANVAS", canvas)
+        before = D0.scale_filter.launches
+        got = gdet.detect_batch(grays, th=-5.0, min_size=110)
+        torch.cuda.synchronize()
+        assert D0.scale_filter.launches == before + 2
+        for a, c in zip(want, got):
+            np.testing.assert_array_equal(a.bboxes, c.bboxes)
+            np.testing.assert_array_equal(a.scores, c.scores)
+            np.testing.assert_array_equal(a.shapes, c.shapes)
+
+
+def test_cpp_canvas_buckets_on_card_match_cpu(cuda, cpp_model, monkeypatch):
+    """Method 0's banded canvases under JDA_TPU_BUCKETS=default and method 1
+    at B=2 under JDA_TPU_TAIL=mxu on the card, bit-equal to the CPU."""
+    from jda_tpu_torch.cascador import CppDetector
+
+    monkeypatch.setenv("JDA_TPU_BUCKETS", "default")
+    monkeypatch.setenv("JDA_TPU_TAIL", "mxu")
+    grays = [_img(120, 160, 23), _img(96, 128, 24)]
+    for method in (0, 1):
+        cfg = jt.Config(fddb_detect_method=method, **CPP_CFG)
+        gdet, cdet = CppDetector(cpp_model, cfg), CppDetector(cpp_model, cfg, device="cpu")
+        want = cdet.detect_batch(grays)
+        assert sum(len(w[0]) for w in want) > 0, "degenerate fixture"
+        for a, b in zip(want, gdet.detect_batch(grays)):
+            _same_cpp(a, b)

@@ -120,7 +120,27 @@ Phases, each fatal on failure:
      (counts set to 0 before each); the lanes of each group at each
      compaction point and the canvas bytes per bucket; the device's idle
      share of one VGA batch on each tail (torch.profiler, device only);
-     the native C library on two VGA images under the canvas tail.
+     the native C library on two VGA images under the canvas tail;
+ 22. the flagship workflow (scripts/train_flagship_torch.py,
+     scripts/eval_synth_scenes_torch.py), each part fatal on failure:
+     (a) SHA-256 digests of the flagship generators' output (64 make_face
+     from seed 7, 8 make_bg tiles, make_near_miss at difficulties 0, 0.5
+     and 1 in every mode, 16 make_hard_canvas, the 24 evaluation scenes)
+     equal to GENERATOR_DIGESTS, recorded from scripts/train_flagship.py
+     with OpenCV, so numpy without OpenCV gives the same bytes here;
+     (b) the scene evaluation of models/flagship_synth.model:
+     Detector(rounding=True).detect_stream over the 24 scenes at B=8, every
+     point of the sweep equal to models/scene_eval.json (tp, fp, faces and
+     recall exactly, the alignment error within 1e-6), the first 8 scenes
+     bit-equal to the port on the CPU, two `dense0_filter` launches per
+     batch, img/s; (c) stage 5 of the flagship resumed from the in-tree
+     snapshot pair through the script's resume path (make_bg, make_near_miss
+     and make_hard_canvas registered, mining capped by
+     --mining-max-batches), RESUME_CARTS carts on the card and on the CPU:
+     every model field (W untouched), the live masks, the negatives, the
+     mined rows, scores and shapes, the factories' cursors and difficulty
+     and the next draw equal; seconds per cart, and per mining event the
+     windows screened per second and the host's seconds.
 
 The last lines are the card (nvidia-smi name and power limit), a
 {"kernels": [...]} JSON line, and {"ok": true, "device": {...}}.  Without a
@@ -130,6 +150,7 @@ CUDA device it exits non-zero and prints no result.
 import contextlib
 import copy
 import functools
+import hashlib
 import json
 import os
 import statistics
@@ -1366,6 +1387,212 @@ def canvas_tail_phase(model, vga, res, hd, res_hd):
     return launches
 
 
+# -- phase 22: the flagship workflow -----------------------------------------
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SNAPSHOT = os.path.join(ROOT, "models", "snapshots",
+                        "jda_{}_20260819-142743_stage_5_cart_0.{}")
+RESUME_CARTS = 3  # carts of stage 5 trained from the snapshot, card and CPU
+RESUME_MINING_BATCHES = 2  # --mining-max-batches of that run
+ALIGN_TOL = 1e-6  # mean alignment error against models/scene_eval.json
+
+# SHA-256 of the generators' output (generator_digests), recorded from
+# scripts/train_flagship.py with OpenCV 5.0.0's GaussianBlur and resize;
+# tests/test_torch_flagship.py recomputes them from that script
+GENERATOR_DIGESTS = {
+    "make_face": "26c920a063f0eb0fa528e6f42da6a3a2857dfe2a39d82ba00be45ce313ef61ca",
+    "make_bg": "f5fb891063461363a796b58e1f13772aeb63b3642bd23b9d664a7c8b6dc01707",
+    "make_near_miss": "0723d5d7e37834eafebd3ca5b8c9cd03137d67b10c9c5021e5d55639a4a35328",
+    "make_hard_canvas": "f5d6567ca11a7d6bcf36f62523abffa709732e40716c3dcb589ffd39fc2c358b",
+    "build_scenes": "29e653d27bc4564b4f223f259e7fb56fa234cc0434f1b3904868ee3df1a23420",
+}
+
+
+def _sha256(parts):
+    h = hashlib.sha256()
+    for p in parts:
+        if isinstance(p, np.ndarray):
+            h.update(f"{p.dtype}{p.shape}".encode())
+            h.update(np.ascontiguousarray(p).tobytes())
+        else:
+            h.update(repr(p).encode())
+    return h.hexdigest()
+
+
+def generator_digests(gen, scenes_gt):
+    """SHA-256 of the flagship generators' output: 64 `make_face(rng, 48)`
+    from seed 7, background tiles 0-7, `make_near_miss` at difficulties 0,
+    0.5 and 1 in every mode, hard canvases 0-15 at difficulties 0 to 1.875,
+    and `build_scenes(default_rng(123), 24)` (`scenes_gt`).  `gen` is a
+    module of the generators: scripts/train_flagship_torch, or
+    scripts/train_flagship with OpenCV."""
+    rng = np.random.default_rng(7)
+    faces = [a for _ in range(64) for a in gen.make_face(rng, 48)]
+    bgs = [gen.make_bg(np.random.default_rng(7_000_000 + i)) for i in range(8)]
+    near = [gen.make_near_miss(np.random.default_rng(9_000_000 + 5 * j + mode), 48, d, mode)
+            for j, d in enumerate((0.0, 0.5, 1.0)) for mode in range(5)]
+    canvases = [a for i in range(16)
+                for a in gen.make_hard_canvas(np.random.default_rng(9_500_000 + i), 48, i / 8)]
+    scenes, gt = scenes_gt
+    return {
+        "make_face": _sha256(faces),
+        "make_bg": _sha256(bgs),
+        "make_near_miss": _sha256(near),
+        "make_hard_canvas": _sha256(canvases),
+        "build_scenes": _sha256(list(scenes) + [a for boxes, lms in gt for a in [boxes, *lms]]),
+    }
+
+
+class _EnoughCarts(Exception):
+    """Stops the resumed trainer after RESUME_CARTS carts."""
+
+
+def resumed_stage5(device):
+    """Stage 5 resumed from the snapshot pair through the script's resume
+    path, stopped after RESUME_CARTS carts.  Returns (trainer, seconds,
+    per-cart seconds, the mined (rows, scores, shapes) of each append)."""
+    from scripts import train_flagship_torch as F
+
+    args = F.parse_args(["--resume", SNAPSHOT.format("tmp", "model"),
+                         "--resume-data", SNAPSHOT.format("data", "data"),
+                         "--mining-max-batches", str(RESUME_MINING_BATCHES)])
+    tr, _ = F.build_trainer(args, device)
+    mined, carts = [], []
+    append, train_cart = tr.neg.append_negatives, tr.train_cart
+
+    def record(rows, scores, shapes, mean_shape):
+        mined.append((rows.copy(), scores.copy(), shapes.copy()))
+        append(rows, scores, shapes, mean_shape)
+
+    def counted(t, k):
+        if len(carts) == RESUME_CARTS:
+            raise _EnoughCarts
+        t0 = time.perf_counter()
+        train_cart(t, k)
+        carts.append(time.perf_counter() - t0)
+
+    tr.neg.append_negatives, tr.train_cart = record, counted
+    t0 = time.perf_counter()
+    try:
+        tr.train()
+    except _EnoughCarts:
+        pass
+    return tr, time.perf_counter() - t0, carts, mined
+
+
+def flagship_phase(card):
+    """Phase 22: the flagship workflow on the card.  Returns dense0_filter's
+    launches in the scene evaluation."""
+    import jda_tpu_torch as jt
+    from jda_tpu_torch.ops import dense0 as D0
+    from scripts import eval_synth_scenes_torch as E
+    from scripts import train_flagship_torch as F
+
+    t_phase = time.perf_counter()
+    # (a) the generators without OpenCV
+    t0 = time.perf_counter()
+    scenes, gt = E.build_scenes(np.random.default_rng(123), E.N_SCENES)
+    got = generator_digests(F, (scenes, gt))
+    bad = [k for k in GENERATOR_DIGESTS if got.get(k) != GENERATOR_DIGESTS[k]]
+    if bad or set(got) != set(GENERATOR_DIGESTS):
+        raise AssertionError(f"[22a] generator digests differ: {bad}")
+    log(f"[22a] {len(got)} generator digests equal to those recorded with OpenCV "
+        f"({', '.join(got)}), {time.perf_counter() - t0:.1f} s")
+
+    # (b) the scene evaluation of the shipped model
+    with open(E.JAX_RECORD) as f:
+        record = json.load(f)
+    model = jt.load_model(os.path.join(ROOT, "models", "flagship_synth.model"))
+    det = jt.Detector(model, rounding=True, device="cuda")
+    kw = dict(batch=8, th=E.SWEEP[0], scale=record["ladder_scale"])
+    t0 = time.perf_counter()
+    det.detect_stream(scenes, **kw)  # builds the plan
+    warm = time.perf_counter() - t0
+    D0.scale_filter.launches = 0
+    t0 = time.perf_counter()
+    res = det.detect_stream(scenes, **kw)  # host results: the card is done
+    secs = time.perf_counter() - t0
+    launches = D0.scale_filter.launches
+    batches = -(-len(scenes) // kw["batch"])
+    if launches != 2 * batches:
+        raise AssertionError(f"[22b] {launches} dense0_filter launches for {batches} batches")
+    pts = E.sweep(res, gt)
+    if [p["th"] for p in pts] != [p["th"] for p in record["sweep"]]:
+        raise AssertionError("[22b] the sweep's thresholds differ from models/scene_eval.json")
+    for p, q in zip(pts, record["sweep"]):
+        for k in ("tp", "fp", "faces", "recall", "fp_per_scene"):
+            if p[k] != q[k]:
+                raise AssertionError(f"[22b] th {p['th']}: {k} {p[k]}, recorded {q[k]}")
+        a, b = p["mean_align_error"], q["mean_align_error"]
+        if (a is None) != (b is None) or (a is not None and not abs(a - b) <= ALIGN_TOL):
+            raise AssertionError(f"[22b] th {p['th']}: alignment error {a}, recorded {b}")
+    align = max(abs(p["mean_align_error"] - q["mean_align_error"])
+                for p, q in zip(pts, record["sweep"]) if q["mean_align_error"] is not None)
+    cpu = jt.Detector(model, rounding=True, device="cpu").detect_stream(scenes[:8], **kw)
+    for i, (x, y) in enumerate(zip(res, cpu)):
+        same_result(x, y, f"[22b] scene {i}, card against the CPU")
+    top = pts[0]
+    log(f"[22b] scene evaluation of models/flagship_synth.model, {len(scenes)} scenes at "
+        f"B=8 on {card}: {len(scenes) / secs:.2f} img/s ({secs:.3f} s; first pass with the "
+        f"plan {warm:.3f} s), dense0_filter launches {launches} ({launches // batches} per "
+        f"batch); every sweep point equal to models/scene_eval.json (th {top['th']}: "
+        f"{top['tp']}/{top['faces']} faces, {top['fp']} FP, alignment error "
+        f"{top['mean_align_error']:.8f}, largest difference {align:.3g}); the first 8 scenes "
+        f"bit-equal to the CPU")
+
+    # (c) stage 5 resumed from the snapshot pair, card against the CPU
+    t0 = time.perf_counter()
+    snap = jt.load_model(SNAPSHOT.format("tmp", "model"))
+    (a, ta, carts, mined_a), (b, tb, _, mined_b) = [resumed_stage5(d) for d in ("cuda", "cpu")]
+    what = "[22c] stage 5 resumed"
+    same_state(
+        {"model": a.model, "pos_live": a.pos.live, "neg_live": a.neg.live,
+         "next_draw": a.rng.integers(1 << 62)},
+        {"model": b.model, "pos_live": b.pos.live, "neg_live": b.neg.live,
+         "next_draw": b.rng.integers(1 << 62)}, what)
+    if not np.array_equal(a.model.W, snap.W):
+        raise AssertionError(f"{what}: W moved before the stage's end")
+    if (a.model.stage_idx, a.model.cart_idx) != (snap.stage_idx, RESUME_CARTS - 1):
+        raise AssertionError(f"{what}: cursor {(a.model.stage_idx, a.model.cart_idx)}")
+    if len(mined_a) != len(mined_b) or not mined_a:
+        raise AssertionError(f"{what}: {len(mined_a)} mined batches on the card, "
+                             f"{len(mined_b)} on the CPU")
+    checks = [("negative rows", a.neg.imgs, b.neg.imgs),
+              ("negative scores", a.neg.scores, b.neg.scores),
+              ("negative shapes", a.neg.current_shapes, b.neg.current_shapes),
+              ("positive scores", a.pos.scores, b.pos.scores)]
+    for i, (x, y) in enumerate(zip(mined_a, mined_b)):
+        checks += [(f"mined rows {i}", x[0], y[0]), (f"mined scores {i}", x[1], y[1]),
+                   (f"mined shapes {i}", x[2], y[2])]
+    for name, x, y in checks:
+        if x.shape != y.shape or not np.array_equal(x, y):
+            raise AssertionError(f"{what}: {name} differ, card vs CPU")
+    for attr in ("_hard_difficulty", "_hard_cursor", "_canvas_cursor"):
+        if getattr(a.neg_gen, attr) != getattr(b.neg_gen, attr):
+            raise AssertionError(f"{what}: {attr} differs, card vs CPU")
+    n_mined = sum(len(x[0]) for x in mined_a)
+    log(f"{what} from the in-tree snapshot pair, carts 1..{RESUME_CARTS} of stage 5 "
+        f"({a.pos.size} faces, {a.neg.size} negatives after), mining capped at "
+        f"{RESUME_MINING_BATCHES} batches: card {ta:.1f} s, CPU {tb:.1f} s; every model field "
+        f"equal (W untouched), live masks, {len(a.neg.imgs)} negative rows, scores and "
+        f"shapes, the {n_mined} mined rows, scores and shapes, difficulty "
+        f"{a.neg_gen._hard_difficulty:.2f}, cursors and the random stream equal")
+    log(f"{what} on {card}: seconds per cart "
+        f"{', '.join(f'{x:.3f}' for x in carts)} (mean {statistics.mean(carts):.3f})")
+    for i, e in enumerate(a.stats["mining"]):
+        ev = F._mining_summary(e)
+        parts = "; ".join(
+            f"{k} {p['mined']} of {p['screened']} screened in {p['seconds']:.3f} s = "
+            f"{p['screened_per_s']:.0f}/s, host {p['host_s']:.3f} s"
+            for k, p in ((k, ev[k]) for k in ("scan", "canvas", "hard")) if p is not None)
+        log(f"{what} mining event {i} (cart {ev['cart']}) on {card}: want {ev['want']}, mined "
+            f"{ev['mined']} in {ev['seconds']:.3f} s; {parts}")
+    del a, b
+    log(f"[22c] done in {time.perf_counter() - t0:.1f} s")
+    log(f"[22] done in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1773,6 +2000,7 @@ def main() -> int:
     hard_pool_phase(card)
     mesh_launches = mesh_phase(card, model, vga, one, train_refs)
     canvas_launches = canvas_tail_phase(model, vga, res, hd, res_hd)
+    flagship_launches = flagship_phase(card)
     log("the times of both kernels' first versions are in PERF.md's kernel table")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
@@ -1794,6 +2022,9 @@ def main() -> int:
         # each canvas-tail route of phase 21 and its gather twin, counts set
         # to 0 just before each
         "launches_canvas_tail": canvas_launches,
+        # the scene evaluation of the flagship model (phase 22), 3 batches of
+        # 8, counts set to 0 just before
+        "launches_flagship_scenes": flagship_launches,
         "max_abs_err": max(err, cpp["err"]),
         "ms": statistics.median([ms, ms2]),
         "head_ms": head_ms,

@@ -16,7 +16,9 @@ image on the host, which is cheap.
 `cv2_resize` is the port's model of `cv2.resize(img, (w, h))` (8-bit,
 INTER_LINEAR), bit-exact on whole-image shrinks as well as on patches; the
 C++-semantics path (cascador.py) calls it wherever the JAX package calls
-OpenCV, so the port needs no OpenCV.
+OpenCV, so the port needs no OpenCV.  `cv2_gaussian_blur` is the same for
+`cv2.GaussianBlur(img, (0, 0), sigma, sigma)` on 8-bit images, which the
+flagship workflow's generators call (scripts/train_flagship_torch.py).
 """
 
 from __future__ import annotations
@@ -218,6 +220,71 @@ def cv2_resize(img: np.ndarray, w: int, h: int) -> np.ndarray:
         t[..., ys0, :], t[..., ys1, :], yc0[:, None], yc1[:, None]
     )
     return np.clip(out, 0, 255).astype(np.uint8)
+
+
+@functools.lru_cache(maxsize=256)
+def gaussian_taps_fixed(sigma: float) -> np.ndarray:
+    """OpenCV's 8-bit Gaussian kernel for `sigma`, in units of 2^-8.
+
+    ksize = cvRound(6 * sigma + 1) | 1.  The float64 taps are
+    exp(x^2 * (-0.125 / sigma^2)) at x = 1 - n, 3 - n, ..., normalised to sum
+    1 (getGaussianKernelBitExact); they are quantised by error diffusion from
+    the outermost tap inward: v = round(k * 256 + err), err = that sum - v,
+    each value mirrored to both sides, and the centre takes 256 - 2 * sum
+    (getGaussianKernelFixedPoint_ED).  Rounding each tap on its own and
+    fixing the centre is off by up to 2 grey levels (sigma 1.85, 2, 3, ...).
+    The array is read-only: it is cached."""
+    n = int(np.rint(sigma * 6 + 1)) | 1
+    h = n // 2
+    x = np.arange(1 - n, 0, 2, dtype=np.int64)[:h]
+    vals = np.exp((x * x).astype(np.float64) * (-0.125 / (sigma * sigma)))
+    total = 0.0
+    for v in vals:  # softdouble sums one tap after another
+        total += float(v)
+    k = vals * (1.0 / (total * 2.0 + 1.0))
+    taps = np.zeros(n, np.int32)
+    err, acc = 0.0, 0
+    for i in range(h):
+        adj = float(k[i]) * 256.0 + err
+        v = int(np.rint(adj))
+        err = adj - float(v)
+        taps[i] = taps[n - 1 - i] = v
+        acc += v
+    taps[h] = 256 - 2 * acc
+    taps.flags.writeable = False
+    return taps
+
+
+def _smooth_rows(a: np.ndarray, taps: np.ndarray) -> np.ndarray:
+    """Symmetric integer filter along the last axis over a reflect-101
+    border (numpy's "reflect"), exact in int32."""
+    n = len(taps)
+    h = n // 2
+    W = a.shape[-1]
+    pad = [(0, 0)] * (a.ndim - 1) + [(h, h)]
+    p = np.pad(a, pad, mode="reflect")
+    out = int(taps[h]) * p[..., h : h + W]
+    for j in range(h):
+        out = out + int(taps[j]) * (p[..., j : j + W] + p[..., n - 1 - j : n - 1 - j + W])
+    return out
+
+
+def cv2_gaussian_blur(img: np.ndarray, sigma: float) -> np.ndarray:
+    """`cv2.GaussianBlur(img, (0, 0), sigmaX=sigma, sigmaY=sigma)` for 2-D
+    uint8 images, bit for bit (OpenCV's fixed-point path for 8-bit images,
+    BORDER_REFLECT_101).
+
+    The row pass sums pixel * tap exactly (8 fractional bits), the column
+    pass sums those rows * tap exactly (16 fractional bits), and the result
+    is (acc + 2^15) >> 16, saturated to uint8.  Numpy, on the host."""
+    if img.dtype != np.uint8 or img.ndim != 2:
+        raise ValueError("cv2_gaussian_blur: img must be a 2-D uint8 array")
+    if not sigma > 0:
+        raise ValueError(f"cv2_gaussian_blur: sigma must be positive, not {sigma}")
+    taps = gaussian_taps_fixed(float(sigma))
+    rows = _smooth_rows(img.astype(np.int32), taps)
+    acc = _smooth_rows(rows.T, taps).T
+    return np.clip((acc + (1 << 15)) >> 16, 0, 255).astype(np.uint8)
 
 
 def stack_pyramid(

@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package, and
 its entry points never fall back to the CPU on their own."""
 
+import glob
 import os
 import re
 import subprocess
@@ -30,18 +31,61 @@ def test_import_pulls_in_no_jax():
     subprocess.run([sys.executable, "-c", code], check=True, env=env, cwd=ROOT)
 
 
+# the port's counterparts of the flagship workflow's scripts
+TORCH_SCRIPTS = sorted(glob.glob(os.path.join(ROOT, "scripts", "*_torch.py")))
+NO_CV2 = re.compile(r"import cv2\b|\bfrom cv2\b")
+
+
 def test_sources_name_no_jax():
+    """No source of the port, chip_smoke.py or the scripts/*_torch.py
+    counterparts names JAX or the JAX package; those scripts name no
+    OpenCV either."""
     pat = re.compile(r"import jax\b|\bjda_tpu\.|\bfrom jda_tpu |\bimport jda_tpu\b")
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py")] + TORCH_SCRIPTS
     for d, _, names in os.walk(os.path.join(ROOT, "jda_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith((".py", ".cu"))]
+    assert len(TORCH_SCRIPTS) >= 3, TORCH_SCRIPTS
     hits = []
     for f in files:
         with open(f) as fh:
             for i, line in enumerate(fh, 1):
-                if pat.search(line):
+                if pat.search(line) or (f in TORCH_SCRIPTS and NO_CV2.search(line)):
                     hits.append(f"{os.path.relpath(f, ROOT)}:{i}: {line.strip()}")
     assert not hits, hits
+
+
+def test_flagship_scripts_import_no_jax_or_cv2():
+    """The flagship workflow's scripts import neither JAX, the JAX package
+    nor OpenCV: the card's machine has none of them."""
+    mods = ", ".join(f"scripts.{os.path.basename(f)[:-3]}" for f in TORCH_SCRIPTS)
+    code = (
+        f"import {mods}, sys; "
+        "bad = [m for m in sys.modules if m in ('jax', 'cv2', 'jda_tpu') or "
+        "m.startswith(('jax.', 'cv2.', 'jda_tpu.'))]; "
+        "assert not bad, bad"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    subprocess.run([sys.executable, "-c", code], check=True, env=env, cwd=ROOT)
+
+
+def test_flagship_scripts_default_device_without_cuda_raises(monkeypatch, tmp_path):
+    """main() of the training and evaluation scripts runs on CUDA unless
+    given --device cpu; without CUDA the default raises before any work
+    (the finalisation script touches no device)."""
+    sys.path.insert(0, ROOT)
+    from scripts import eval_synth_scenes_torch as E
+    from scripts import train_flagship_torch as F
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = str(tmp_path / "run")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        F.main(["--n-pos", "8", "--out", out])
+    assert not os.path.exists(out)
+    model = os.path.join(ROOT, "models", "flagship_synth.model")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        E.main([model, str(tmp_path / "eval.json")])
+    assert not os.path.exists(tmp_path / "eval.json")
+    assert F.parse_args(["--device", "cpu"]).device == "cpu"
 
 
 def test_default_device_without_cuda_raises(monkeypatch):

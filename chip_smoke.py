@@ -140,7 +140,26 @@ Phases, each fatal on failure:
      every model field (W untouched), the live masks, the negatives, the
      mined rows, scores and shapes, the factories' cursors and difficulty
      and the next draw equal; seconds per cart, and per mining event the
-     windows screened per second and the host's seconds.
+     windows screened per second and the host's seconds;
+ 23. the held-out and FDDB-format evaluations (scripts/eval_holdout_torch.py,
+     scripts/synth_fddb_torch.py, jda_tpu_torch/jpeg.py), each part fatal
+     on failure: (a) SHA-256 digests of the six families' scenes and truths
+     (perturbed families from HOLDOUT_SEEDS): base, photometric, blur,
+     occlusion and gradient equal to HOLDOUT_DIGESTS, recorded from
+     scripts/eval_holdout.py with OpenCV, and texture_bg equal to the
+     port's own digest (ops/resize.cv2_resize_cubic leaves 11 of its pixels
+     1 off OpenCV's); (b) the six sweeps of models/flagship_synth.model on
+     the card (24 scenes each at B=8, th -3, ladder 1.25): two
+     `dense0_filter` launches per batch, base and texture_bg equal to
+     models/scene_eval_holdout.json at every point, the first 8 scenes of
+     each family bit-equal to the port on the CPU, img/s; (c) the 48
+     in-tree JPEGs of data/fddb_synth decoded by jpeg.imread_gray equal to
+     JPEG_DIGESTS (OpenCV's gray reads), fold 1's first 4 scenes encoded
+     byte-equal to the in-tree files, host seconds per image for each;
+     (d) run_fddb with method 1 over a copy of data/fddb_synth read by
+     jpeg.imread_gray: 12 `dense0_filter` launches, fold outputs equal to
+     data/fddb_synth/result (rects exact, scores within 2e-4), the discROC
+     points equal, img/s.
 
 The last lines are the card (nvidia-smi name and power limit), a
 {"kernels": [...]} JSON line, and {"ok": true, "device": {...}}.  Without a
@@ -149,10 +168,12 @@ CUDA device it exits non-zero and prints no result.
 
 import contextlib
 import copy
+import dataclasses
 import functools
 import hashlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1593,6 +1614,187 @@ def flagship_phase(card):
     return launches
 
 
+# -- phase 23: the held-out and FDDB-format evaluations ------------------------
+
+# fixed seeds of the perturbed families (scripts/eval_holdout_torch.py's
+# main() keeps the JAX script's per-process hash(fam) seeding)
+HOLDOUT_SEEDS = {"photometric": 101, "blur": 102, "occlusion": 103, "gradient": 104}
+# SHA-256 of the six families' scenes and truths (holdout_digests), recorded
+# from scripts/eval_holdout.py's functions with OpenCV 5.0.0 (IPP build);
+# tests/test_torch_holdout.py recomputes them
+HOLDOUT_DIGESTS = {
+    "base": "9fb77bd966c92f1b1cff36c0f8becaef0196141937920fc5a4707221d2c5dfad",
+    "photometric": "d1052faec7cf49c0cbd95367c193261f6c119e0331bc01d6ce3a281931567ffe",
+    "blur": "b107f4122f5822066cb726c64977bd9ec9a4c709793c967891a1c62f34005fd4",
+    "occlusion": "a05c2a14a68f5d20a464040678adba86a48bce8b3502a72b068b82ef89fbbf35",
+    "gradient": "00251b4e6945e45f1f1f11f590e35ba345e85ade68a64201c3e41926b8766c19",
+    "texture_bg": "d31bf7ac6469585906462365a5d8e874b752bf1e3c8da60ba89b4714a42f8ddf",
+}
+# the port's texture_bg scenes: ops/resize.cv2_resize_cubic leaves 11 of
+# their 7,372,800 pixels 1 off OpenCV's at clamped taps, so that family is
+# held to the port's own digest (recorded on the CPU) and the test counts
+# the 11 pixels
+TEXTURE_BG_PORT_DIGEST = "b28acaf81e220826ef6c7a4c09cfe900d4017fa5c8aead051c4a4f50419164af"
+# SHA-256 of the 48 in-tree JPEGs of data/fddb_synth decoded by OpenCV
+# (cv2.cvtColor(cv2.imread(p), cv2.COLOR_BGR2GRAY)), per fold in list order
+JPEG_DIGESTS = {
+    "fold_01": "9abba7f51736b9aa447c84278aa397293af80323a72db8af8037a3686d73f7b2",
+    "fold_02": "ca53d215df0afc6e72c37f94aaaf92ea55e9ad8a96f42ee186b476b3247727f0",
+}
+FDDB_SYNTH = os.path.join(ROOT, "data", "fddb_synth")
+
+
+def holdout_digests(families):
+    """SHA-256 of each family's scenes and truths."""
+    return {fam: _sha256(list(scenes) + [a for boxes, lms in gt for a in [boxes, *lms]])
+            for fam, (scenes, gt) in families.items()}
+
+
+def fddb_jpeg_digests(read):
+    """SHA-256 of each fold of data/fddb_synth decoded, `read(path)` in
+    list order."""
+    out = {}
+    for f in (1, 2):
+        with open(os.path.join(FDDB_SYNTH, "FDDB-folds", f"FDDB-fold-{f:02d}.txt")) as fh:
+            names = fh.read().split()
+        out[f"fold_{f:02d}"] = _sha256(
+            [read(os.path.join(FDDB_SYNTH, "images", n + ".jpg")) for n in names])
+    return out
+
+
+def holdout_phase(card):
+    """Phase 23: the held-out sweep and the FDDB-format run on the card.
+    Returns dense0_filter's launches: (the six sweeps, run_fddb)."""
+    import torch
+
+    import jda_tpu_torch as jt
+    from jda_tpu_torch import jpeg
+    from jda_tpu_torch.fddb import run_fddb
+    from jda_tpu_torch.ops import dense0 as D0
+    from scripts import eval_holdout_torch as EH
+    from scripts import eval_synth_scenes_torch as E
+    from scripts import synth_fddb_torch as SF
+    from scripts.train_flagship_torch import flagship_config
+
+    t_phase = time.perf_counter()
+    # (a) the six families without OpenCV
+    t0 = time.perf_counter()
+    families = EH.build_families(24, HOLDOUT_SEEDS)
+    t_build = time.perf_counter() - t0
+    got = holdout_digests(families)
+    want = dict(HOLDOUT_DIGESTS, texture_bg=TEXTURE_BG_PORT_DIGEST)
+    bad = [k for k in EH.FAMILIES if got.get(k) != want.get(k)]
+    if bad:
+        raise AssertionError(f"[23a] scene digests differ: {bad}")
+    log(f"[23a] {len(got)} families of 24 scenes built in {t_build:.2f} s on the host; digests "
+        f"equal to those recorded with OpenCV ({', '.join(k for k in EH.FAMILIES if k != 'texture_bg')}) "
+        f"and to the port's (texture_bg)")
+
+    # (b) the six sweeps of the shipped model
+    with open(EH.JAX_RECORD) as f:
+        record = json.load(f)
+    model = jt.load_model(os.path.join(ROOT, "models", "flagship_synth.model"))
+    det = jt.Detector(model, rounding=True, device="cuda")
+    cpu = jt.Detector(model, rounding=True, device="cpu")
+    kw = dict(batch=8, th=E.SWEEP[0], scale=record["ladder_scale"])
+    t0 = time.perf_counter()
+    det.detect_stream(families["base"][0][:8], **kw)  # builds the plan
+    warm = time.perf_counter() - t0
+    sweep_launches, secs, n_img = 0, 0.0, 0
+    for fam, (scenes, gt) in families.items():
+        torch.cuda.synchronize()
+        D0.scale_filter.launches = 0
+        t0 = time.perf_counter()
+        res = det.detect_stream(scenes, **kw)  # host results: the card is done
+        secs += time.perf_counter() - t0
+        launches = D0.scale_filter.launches
+        batches = -(-len(scenes) // kw["batch"])
+        if launches != 2 * batches:
+            raise AssertionError(f"[23b] {fam}: {launches} dense0_filter launches for "
+                                 f"{batches} batches")
+        sweep_launches += launches
+        n_img += len(scenes)
+        pts = E.sweep(res, gt)
+        if fam in ("base", "texture_bg"):
+            for p, q in zip(pts, record["families"][fam], strict=True):
+                for k in ("th", "tp", "fp", "faces", "recall", "fp_per_scene"):
+                    if p[k] != q[k]:
+                        raise AssertionError(f"[23b] {fam} th {p['th']}: {k} {p[k]}, recorded {q[k]}")
+                a, b = p["mean_align_error"], q["mean_align_error"]
+                if (a is None) != (b is None) or (a is not None and not abs(a - b) <= ALIGN_TOL):
+                    raise AssertionError(f"[23b] {fam} th {p['th']}: alignment error {a}, "
+                                         f"recorded {b}")
+        for i, (x, y) in enumerate(zip(res[:8], cpu.detect_stream(scenes[:8], **kw))):
+            same_result(x, y, f"[23b] {fam} scene {i}, card against the CPU")
+        top = pts[0]
+        log(f"[23b] {fam}: th {top['th']} {top['tp']}/{top['faces']} faces, {top['fp']} FP, "
+            f"alignment error {top['mean_align_error']}; th 0: {pts[5]['tp']} faces, "
+            f"{pts[5]['fp']} FP; {launches} dense0_filter launches; the first 8 scenes "
+            f"bit-equal to the CPU"
+            + ("; every point equal to models/scene_eval_holdout.json"
+               if fam in ("base", "texture_bg") else ""))
+    log(f"[23b] six families, {n_img} scenes at B=8 on {card}: {n_img / secs:.2f} img/s "
+        f"({secs:.3f} s; the plan built in {warm:.3f} s before)")
+
+    # (c) the JPEG codec on the in-tree tree
+    t0 = time.perf_counter()
+    dec = fddb_jpeg_digests(jpeg.imread_gray)
+    t_dec = (time.perf_counter() - t0) / 48
+    if dec != JPEG_DIGESTS:
+        raise AssertionError(f"[23c] decoded JPEG digests differ: "
+                             f"{[k for k in JPEG_DIGESTS if dec.get(k) != JPEG_DIGESTS[k]]}")
+    scenes, _ = E.build_scenes(np.random.default_rng(123), 4)
+    t0 = time.perf_counter()
+    encoded = [jpeg.encode_gray(s) for s in scenes]
+    t_enc = (time.perf_counter() - t0) / len(scenes)
+    for i, data in enumerate(encoded):
+        with open(os.path.join(FDDB_SYNTH, "images", "synth", "fold_01", f"img_{i:03d}.jpg"),
+                  "rb") as fh:
+            if fh.read() != data:
+                raise AssertionError(f"[23c] scene {i} encodes to other bytes than the in-tree file")
+    log(f"[23c] the 48 in-tree JPEGs decoded equal to OpenCV's ({t_dec:.3f} s per image on the "
+        f"host); fold 1's first 4 scenes encoded byte-equal to the in-tree files ({t_enc:.3f} s "
+        f"per image)")
+
+    # (d) run_fddb, method 1, over a copy of data/fddb_synth
+    with tempfile.TemporaryDirectory() as tmp:
+        for sub in ("FDDB-folds", "images"):
+            shutil.copytree(os.path.join(FDDB_SYNTH, sub), os.path.join(tmp, sub))
+        c = dataclasses.replace(
+            flagship_config(),
+            fddb_dir=tmp, fddb_detect_method=1, fddb_minimum_size=40,
+            fddb_scale_factor=1.25, fddb_step=5, fddb_nms=True, fddb_result=False)
+        out = os.path.join(tmp, "result_torch")
+        torch.cuda.synchronize()
+        D0.scale_filter.launches = D0.stage0_filter_image.launches = 0
+        stats = run_fddb(model, c, folds=[1, 2], out_dir=out, imread=jpeg.imread_gray,
+                         device="cuda")
+        torch.cuda.synchronize()
+        fddb_launches = (D0.scale_filter.launches, D0.stage0_filter_image.launches)
+        if fddb_launches != (12, 0):  # 3 batches of 8 per fold, 2 launches each
+            raise AssertionError(f"[23d] run_fddb launches {fddb_launches}")
+        report, bad = SF.compare_run(tmp, out, 2, FDDB_SYNTH)
+        if bad:
+            raise AssertionError(f"[23d] fold outputs differ from data/fddb_synth: {report}")
+        cmp = report["fold_out"].values()
+        n = sum(r["detections"] for r in cmp)
+        digits = sum(r["printed_differently"] for r in cmp)
+        worst = max(r["largest_difference"] for r in cmp)
+        faces, roc = SF.score_outputs(tmp, 2, out)
+        faces_j, roc_j = SF.score_outputs(FDDB_SYNTH, 2)
+        pts, pts_j = SF.disc_roc_points(roc, 24), SF.disc_roc_points(roc_j, 24)
+        if (faces, pts) != (faces_j, pts_j):
+            raise AssertionError(f"[23d] discROC {faces} {pts}, the record's {faces_j} {pts_j}")
+    log(f"[23d] run_fddb method 1 over data/fddb_synth (2 folds, {stats['images']} images, "
+        f"read by jpeg.imread_gray) on {card}: {stats['images_per_sec']:.2f} img/s "
+        f"({stats['seconds']:.3f} s of detection), windows {stats['windows']}, faces "
+        f"{stats['face_windows']}, dense0_filter launches {fddb_launches[0]}; {n} detections: "
+        f"rects equal to data/fddb_synth/result, scores within {SF.SCORE_TOL} (largest "
+        f"difference {worst:.2g}, {digits} printed differently); discROC {pts} equal")
+    log(f"[23] done in {time.perf_counter() - t_phase:.1f} s")
+    return sweep_launches, fddb_launches[0]
+
+
 def main() -> int:
     import torch
 
@@ -2001,6 +2203,7 @@ def main() -> int:
     mesh_launches = mesh_phase(card, model, vga, one, train_refs)
     canvas_launches = canvas_tail_phase(model, vga, res, hd, res_hd)
     flagship_launches = flagship_phase(card)
+    holdout_launches, fddb_synth_launches = holdout_phase(card)
     log("the times of both kernels' first versions are in PERF.md's kernel table")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
@@ -2025,6 +2228,11 @@ def main() -> int:
         # the scene evaluation of the flagship model (phase 22), 3 batches of
         # 8, counts set to 0 just before
         "launches_flagship_scenes": flagship_launches,
+        # the held-out sweeps (phase 23b: 6 families, 3 batches of 8 each) and
+        # run_fddb over data/fddb_synth (23d: 2 folds, 3 batches each), counts
+        # set to 0 just before each
+        "launches_holdout_sweeps": holdout_launches,
+        "launches_fddb_synth": fddb_synth_launches,
         "max_abs_err": max(err, cpp["err"]),
         "ms": statistics.median([ms, ms2]),
         "head_ms": head_ms,

@@ -19,6 +19,10 @@ C++-semantics path (cascador.py) calls it wherever the JAX package calls
 OpenCV, so the port needs no OpenCV.  `cv2_gaussian_blur` is the same for
 `cv2.GaussianBlur(img, (0, 0), sigma, sigma)` on 8-bit images, which the
 flagship workflow's generators call (scripts/train_flagship_torch.py).
+`cv2_gaussian_blur_f32` is `cv2.GaussianBlur` on float32 images and
+`cv2_resize_cubic` is `cv2.resize(..., interpolation=cv2.INTER_CUBIC)` on
+8-bit images, as the held-out evaluation (scripts/eval_holdout_torch.py)
+calls them.
 """
 
 from __future__ import annotations
@@ -285,6 +289,174 @@ def cv2_gaussian_blur(img: np.ndarray, sigma: float) -> np.ndarray:
     rows = _smooth_rows(img.astype(np.int32), taps)
     acc = _smooth_rows(rows.T, taps).T
     return np.clip((acc + (1 << 15)) >> 16, 0, 255).astype(np.uint8)
+
+
+def _fma_f32(a, b, c) -> np.ndarray:
+    """float32 fused multiply-add, a * b + c with one rounding, in numpy.
+
+    The product of two float32 values is exact in float64; the float64 sum
+    can round once more, and its rounding to float32 then errs only when it
+    lands on a float32 midpoint: the exact remainder (TwoSum) decides that
+    case."""
+    p = np.float64(a) * np.float64(b)
+    c = np.float64(c)
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)  # s + e == p + c exactly
+    r = s.astype(np.float32)
+    r64 = r.astype(np.float64)
+    other = np.where(s > r64, np.nextafter(r, np.float32(np.inf)),
+                     np.nextafter(r, np.float32(-np.inf)))
+    tie = (s == (r64 + other.astype(np.float64)) * 0.5) & (e != 0)
+    fixed = np.where(e > 0, np.maximum(r, other), np.minimum(r, other))
+    return np.where(tie, fixed, r).astype(np.float32)
+
+
+def gaussian_kernel_f32(sigma: float) -> np.ndarray:
+    """OpenCV's Gaussian kernel for float32 images (getGaussianKernel with
+    CV_32F): n = round(8 sigma + 1) | 1 taps, exp(x^2 * (-0.125 / sigma^2))
+    at x = 1 - n, 3 - n, ..., normalised in double to sum 1
+    (getGaussianKernelBitExact), then rounded to float32."""
+    n = int(np.rint(sigma * 8 + 1)) | 1
+    h = n // 2
+    x = np.arange(1 - n, 0, 2, dtype=np.int64)[:h]
+    vals = np.exp((x * x).astype(np.float64) * (-0.125 / (sigma * sigma)))
+    total = 0.0
+    for v in vals:  # softdouble sums one tap after another
+        total += float(v)
+    mul = 1.0 / (total * 2.0 + 1.0)
+    k = np.empty(n, np.float64)
+    k[:h] = vals * mul
+    k[h + 1:] = k[:h][::-1]
+    k[h] = mul
+    return k.astype(np.float32)
+
+
+def cv2_gaussian_blur_f32(img: np.ndarray, sigma: float) -> np.ndarray:
+    """`cv2.GaussianBlur(img, (0, 0), sigmaX=sigma, sigmaY=sigma)` for 2-D
+    float32 images, bit for bit (OpenCV's separable filter for float32,
+    BORDER_REFLECT_101; the build's AVX2 paths, which IPP does not replace).
+
+    The row pass sums tap 0 to n-1 in float32, fused multiply-adds over the
+    columns its 4-wide vector loop covers and a multiply, then an add, over
+    the rest (RowVec_32f); the column pass starts from the centre tap and
+    adds (row[+k] + row[-k]) * tap[k] outward, fused over the columns its
+    8-wide vector loop covers (SymmColumnVec_32f).  Numpy, on the host."""
+    if img.dtype != np.float32 or img.ndim != 2:
+        raise ValueError("cv2_gaussian_blur_f32: img must be a 2-D float32 array")
+    if not sigma > 0:
+        raise ValueError(f"cv2_gaussian_blur_f32: sigma must be positive, not {sigma}")
+    k = gaussian_kernel_f32(float(sigma))
+    n, h = len(k), len(k) // 2
+    H, W = img.shape
+    p = np.pad(img, ((0, 0), (h, h)), mode="reflect")
+    fused = (W // 4) * 4
+    rows = p[:, 0:W] * k[0]
+    for j in range(1, n):
+        win = p[:, j:j + W]
+        rows[:, :fused] = _fma_f32(win[:, :fused], k[j], rows[:, :fused])
+        rows[:, fused:] += win[:, fused:] * k[j]
+    q = np.pad(rows, ((h, h), (0, 0)), mode="reflect")
+    fused = (W // 8) * 8
+    out = q[h:h + H] * k[h]
+    for j in range(1, h + 1):
+        pair = q[h + j:h + j + H] + q[h - j:h - j + H]
+        out[:, :fused] = _fma_f32(pair[:, :fused], k[h + j], out[:, :fused])
+        out[:, fused:] += pair[:, fused:] * k[h + j]
+    return out
+
+
+# the Keys cubic (A = -0.75) as polynomials in the fraction t, for the taps
+# at -1, 0, 1, 2: coefficients of t^3, t^2, t, 1
+_CUBIC = ((-0.75, 1.5, -0.75, 0.0), (1.25, -2.25, 0.0, 1.0),
+          (-1.25, 1.5, 0.75, 0.0), (0.75, -0.75, 0.0, 0.0))
+_INNER, _EDGE, _BORDER = 0, 1, 2
+
+
+def cubic_taps(dst: int, src: int):
+    """The taps of one axis of `cv2_resize_cubic`: source indices [dst, 4]
+    (clamped: border replicate), float32 weights [dst, 4] and each output's
+    class (0: every tap inside and the last below src - 1, 1: the last tap
+    at src - 1, 2: a tap clamped).
+
+    The source coordinate is (d + 0.5) * src / dst - 0.5 in double; its
+    fraction goes through float32 as float32(1 + float32(t)) - 1 (so on a
+    grid of 2^-23), and each weight is the cubic at that fraction in double,
+    rounded to float32."""
+    d = np.arange(dst, dtype=np.float64)
+    fx = (d + 0.5) * (src / dst) - 0.5
+    sx = np.floor(fx)
+    t32 = (fx - sx).astype(np.float32)
+    t = (np.float32(1) + t32).astype(np.float32).astype(np.float64) - 1.0
+    w = np.stack([((a * t + b) * t + c) * t + e for a, b, c, e in _CUBIC], -1)
+    s = sx.astype(np.int64)
+    idx = np.clip(s[:, None] + np.arange(-1, 3), 0, src - 1)
+    cls = np.where((s - 1 < 0) | (s + 2 > src - 1), _BORDER,
+                   np.where(s + 2 == src - 1, _EDGE, _INNER))
+    return idx, w.astype(np.float32), cls
+
+
+def _pairs(t, w, order):
+    """(t[a] * w[a] + t[b] * w[b]) + (t[c] * w[c] + t[d] * w[d]) in float32
+    for order (a, b, c, d)."""
+    a, b, c, d = order
+    return (t[a] * w[a] + t[b] * w[b]) + (t[c] * w[c] + t[d] * w[d])
+
+
+def _pairs_fma(t, w):
+    """fma(t0, w0, t1 * w1) + fma(t2, w2, t3 * w3) in float32."""
+    return _fma_f32(t[0], w[0], t[1] * w[1]) + _fma_f32(t[2], w[2], t[3] * w[3])
+
+
+def _chain_fma(t, w):
+    """fma(t3, w3, fma(t2, w2, fma(t0, w0, t1 * w1))) in float32."""
+    acc = _fma_f32(t[0], w[0], t[1] * w[1])
+    acc = _fma_f32(t[2], w[2], acc)
+    return _fma_f32(t[3], w[3], acc)
+
+
+def cv2_resize_cubic(img: np.ndarray, w: int, h: int) -> np.ndarray:
+    """`cv2.resize(img, (w, h), interpolation=cv2.INTER_CUBIC)` for 2-D
+    uint8 images, as OpenCV's builds with Intel IPP compute it (IPP's float
+    cubic resize, which OpenCV's IPP HAL takes in place of its own
+    fixed-point resize).  Numpy, on the host.
+
+    Rows first: each output column sums its four taps in float32, as
+    (p0 w0 + p1 w1) + (p2 w2 + p3 w3) inside, (p0 w0 + p2 w2) + (p1 w1 +
+    p3 w3) where the last tap is the last column, and by fused
+    multiply-adds where a tap is clamped; the column pass sums four such
+    rows by fma(r0, w0, r1 w1) + fma(r2, w2, r3 w3) (by the chain of fused
+    multiply-adds at clamped columns); the result is rounded to nearest
+    even and saturated.  Every output whose taps lie inside the image and
+    short of its last row and column, in both axes, is OpenCV's bit for
+    bit.  Near the edges the arithmetic order is the nearest found, and a
+    float32 ulp there can move a value that lies within about 2e-5 of a
+    half to the other integer: 14 of the 7,372,800 pixels of 24
+    smooth-noise backgrounds (12x12 up to 640x480, as
+    scripts/eval_holdout_torch.py draws them) differ by 1
+    (tests/test_torch_holdout.py holds that count).
+    """
+    if img.dtype != np.uint8 or img.ndim != 2:
+        raise ValueError("cv2_resize_cubic: img must be a 2-D uint8 array")
+    a = img.astype(np.float32)
+    H, W = a.shape
+    xi, xw, xc = cubic_taps(w, W)
+    yi, yw, yc = cubic_taps(h, H)
+    cols = [a[:, xi[:, k]] for k in range(4)]
+    wx = [xw[None, :, k] for k in range(4)]
+    inner = _pairs(cols, wx, (0, 1, 2, 3))
+    rows = np.where(xc == _EDGE, _pairs(cols, wx, (0, 2, 1, 3)), inner)
+    rows = np.where(xc == _BORDER, _chain_fma(cols, wx), rows)
+    wy = [yw[:, k:k + 1] for k in range(4)]
+    out = _pairs_fma([rows[yi[:, k]] for k in range(4)], wy)
+    out = np.where((yc != _BORDER)[:, None] & (xc == _BORDER)[None, :],
+                   _chain_fma([rows[yi[:, k]] for k in range(4)], wy), out)
+    # rows whose taps are clamped take the inner row sum at every column
+    border_rows = yc == _BORDER
+    if border_rows.any():
+        sel = [inner[yi[border_rows, k]] for k in range(4)]
+        out[border_rows] = _pairs_fma(sel, [v[border_rows] for v in wy])
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
 
 
 def stack_pyramid(

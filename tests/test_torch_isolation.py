@@ -22,7 +22,7 @@ def test_import_pulls_in_no_jax():
         "jda_tpu_torch.train, jda_tpu_torch.train.boost, jda_tpu_torch.train.mining, "
         "jda_tpu_torch.cli, jda_tpu_torch.__main__, jda_tpu_torch.entry, "
         "jda_tpu_torch.train.sharded, jda_tpu_torch.train.dryrun, jda_tpu_torch.ops.mxu_tail, "
-        "jda_tpu_torch.oracle, sys; "
+        "jda_tpu_torch.oracle, jda_tpu_torch.jpeg, sys; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
         "'jda_tpu.')) or m == 'jda_tpu']; "
         "assert not bad, bad"
@@ -86,6 +86,37 @@ def test_flagship_scripts_default_device_without_cuda_raises(monkeypatch, tmp_pa
         E.main([model, str(tmp_path / "eval.json")])
     assert not os.path.exists(tmp_path / "eval.json")
     assert F.parse_args(["--device", "cpu"]).device == "cpu"
+
+
+def test_codec_and_resize_import_no_cv2():
+    """The JPEG codec and the OpenCV models stand in for OpenCV: importing
+    them loads no cv2 (nor JAX)."""
+    code = (
+        "import jda_tpu_torch.jpeg, jda_tpu_torch.ops.resize, jda_tpu_torch.fddb, sys; "
+        "bad = [m for m in sys.modules if m in ('jax', 'cv2') or "
+        "m.startswith(('jax.', 'cv2.'))]; "
+        "assert not bad, bad"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    subprocess.run([sys.executable, "-c", code], check=True, env=env, cwd=ROOT)
+
+
+def test_evaluation_scripts_default_device_without_cuda_raises(monkeypatch, tmp_path):
+    """main() of the held-out and FDDB-format scripts runs on CUDA unless
+    given --device cpu; without CUDA the default raises before any work."""
+    sys.path.insert(0, ROOT)
+    from scripts import eval_holdout_torch as H
+    from scripts import synth_fddb_torch as S
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = os.path.join(ROOT, "models", "flagship_synth.model")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        H.main([model, str(tmp_path / "holdout.json")])
+    assert not os.path.exists(tmp_path / "holdout.json")
+    tree = tmp_path / "tree"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        S.main([model, "--dir", str(tree), "--out-json", str(tmp_path / "s.json")])
+    assert not os.path.exists(tree) and not os.path.exists(tmp_path / "s.json")
 
 
 def test_default_device_without_cuda_raises(monkeypatch):

@@ -144,11 +144,9 @@ Phases, each fatal on failure:
  23. the held-out and FDDB-format evaluations (scripts/eval_holdout_torch.py,
      scripts/synth_fddb_torch.py, jda_tpu_torch/jpeg.py), each part fatal
      on failure: (a) SHA-256 digests of the six families' scenes and truths
-     (perturbed families from HOLDOUT_SEEDS): base, photometric, blur,
-     occlusion and gradient equal to HOLDOUT_DIGESTS, recorded from
-     scripts/eval_holdout.py with OpenCV, and texture_bg equal to the
-     port's own digest (ops/resize.cv2_resize_cubic leaves 11 of its pixels
-     1 off OpenCV's); (b) the six sweeps of models/flagship_synth.model on
+     (perturbed families from HOLDOUT_SEEDS), all six equal to
+     HOLDOUT_DIGESTS, recorded from scripts/eval_holdout.py with OpenCV;
+     (b) the six sweeps of models/flagship_synth.model on
      the card (24 scenes each at B=8, th -3, ladder 1.25): two
      `dense0_filter` launches per batch, base and texture_bg equal to
      models/scene_eval_holdout.json at every point, the first 8 scenes of
@@ -159,7 +157,14 @@ Phases, each fatal on failure:
      (d) run_fddb with method 1 over a copy of data/fddb_synth read by
      jpeg.imread_gray: 12 `dense0_filter` launches, fold outputs equal to
      data/fddb_synth/result (rects exact, scores within 2e-4), the discROC
-     points equal, img/s.
+     points equal, img/s;
+ 24. the measurement entry points, each part fatal on failure: (a)
+     bench_torch.run in short form (16 VGA images at B=16, one rep, 16
+     1080p frames at B=4) against the C library on one core: bench.py's
+     keys and `baseline`, a vs_baseline, 16 `dense0_filter` launches, the
+     batch's boxes identical to the C library's, scores within 2e-4; (b)
+     scripts/bench_1080p_torch.run over 4 frames at B=2: its keys, 20
+     launches.
 
 The last lines are the card (nvidia-smi name and power limit), a
 {"kernels": [...]} JSON line, and {"ok": true, "device": {...}}.  Without a
@@ -182,18 +187,10 @@ import time
 
 import numpy as np
 
+from bench_torch import KW as BENCH_KW, make_image
+
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
-BENCH_KW = dict(scale=1.25, min_size=24, max_size=-1, th=-0.5)
-
-
-def make_image(h, w, seed):
-    """Blocky texture plus noise, as the repository's bench draws it."""
-    rng = np.random.default_rng(seed)
-    base = rng.integers(0, 256, (h // 8 + 2, w // 8 + 2)).astype(np.float32)
-    img = np.kron(base, np.ones((8, 8), np.float32))[:h, :w]
-    noise = rng.normal(0, 12, (h, w))
-    return np.clip(img + noise, 0, 255).astype(np.uint8)
 
 
 # 27-landmark face template in [0, 1] window coordinates (brows, eyes,
@@ -1630,11 +1627,6 @@ HOLDOUT_DIGESTS = {
     "gradient": "00251b4e6945e45f1f1f11f590e35ba345e85ade68a64201c3e41926b8766c19",
     "texture_bg": "d31bf7ac6469585906462365a5d8e874b752bf1e3c8da60ba89b4714a42f8ddf",
 }
-# the port's texture_bg scenes: ops/resize.cv2_resize_cubic leaves 11 of
-# their 7,372,800 pixels 1 off OpenCV's at clamped taps, so that family is
-# held to the port's own digest (recorded on the CPU) and the test counts
-# the 11 pixels
-TEXTURE_BG_PORT_DIGEST = "b28acaf81e220826ef6c7a4c09cfe900d4017fa5c8aead051c4a4f50419164af"
 # SHA-256 of the 48 in-tree JPEGs of data/fddb_synth decoded by OpenCV
 # (cv2.cvtColor(cv2.imread(p), cv2.COLOR_BGR2GRAY)), per fold in list order
 JPEG_DIGESTS = {
@@ -1682,13 +1674,11 @@ def holdout_phase(card):
     families = EH.build_families(24, HOLDOUT_SEEDS)
     t_build = time.perf_counter() - t0
     got = holdout_digests(families)
-    want = dict(HOLDOUT_DIGESTS, texture_bg=TEXTURE_BG_PORT_DIGEST)
-    bad = [k for k in EH.FAMILIES if got.get(k) != want.get(k)]
+    bad = [k for k in EH.FAMILIES if got.get(k) != HOLDOUT_DIGESTS.get(k)]
     if bad:
         raise AssertionError(f"[23a] scene digests differ: {bad}")
     log(f"[23a] {len(got)} families of 24 scenes built in {t_build:.2f} s on the host; digests "
-        f"equal to those recorded with OpenCV ({', '.join(k for k in EH.FAMILIES if k != 'texture_bg')}) "
-        f"and to the port's (texture_bg)")
+        f"equal to those recorded with OpenCV ({', '.join(EH.FAMILIES)})")
 
     # (b) the six sweeps of the shipped model
     with open(EH.JAX_RECORD) as f:
@@ -1793,6 +1783,74 @@ def holdout_phase(card):
         f"difference {worst:.2g}, {digits} printed differently); discROC {pts} equal")
     log(f"[23] done in {time.perf_counter() - t_phase:.1f} s")
     return sweep_launches, fddb_launches[0]
+
+
+# the keys of bench.py's JSON line (bench_torch.py adds "baseline", "batch",
+# "tail" and "canvas")
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "windows_per_image", "windows_per_sec",
+              "runs_images_per_sec", "ref_runs_images_per_sec", "p1080_stream_fps",
+              "p1080_windows_per_frame", "p1080_windows_per_sec"}
+BENCH_1080P_KEYS = {"metric", "sec_per_frame_b1", "lat_runs", "stream_fps", "batch", "frames",
+                    "windows_per_frame", "windows_per_sec_stream", "tail", "canvas"}
+
+
+def bench_phase(card, model, vga):
+    """Phase 24: the measurement entry points (bench_torch.py,
+    scripts/bench_1080p_torch.py) in short form.  Returns dense0_filter's
+    launches of each run, counts set to 0 just before it."""
+    import torch
+
+    import bench_torch as BT
+    import jda_tpu_torch as jt
+    from jda_tpu_torch.ops import dense0 as D0
+    from scripts import bench_1080p_torch as B1080
+
+    t_phase = time.perf_counter()
+    launches = {}
+    # (a) bench_torch.run: one chunk of 16 VGA images, one rep, the 1080p
+    # section at B=4 over 16 frames
+    imgs = vga[:16]
+    frames = [make_image(BT.HD_H, BT.HD_W, seed=BT.FRAME_SEED + i) for i in range(16)]
+    det = jt.Detector(model)
+    with tempfile.TemporaryDirectory() as tmp:
+        base = BT.Baseline(model, tmp)
+        D0.scale_filter.launches = 0
+        line, res = BT.run(det, imgs, frames, 16, 1, base, batch_1080=4)
+        torch.cuda.synchronize()
+        launches["bench_torch"] = D0.scale_filter.launches
+        # warm 1 + timed 1 VGA batches (the warm pass takes two chunks of
+        # what there is), warm 2 + timed 4 1080p batches, 2 each
+        if launches["bench_torch"] != 2 * (1 + 1 + 2 + 4):
+            raise AssertionError(f"[24a] bench_torch.run: {launches['bench_torch']} launches")
+        if set(line) != BENCH_KEYS | {"baseline", "batch", "tail", "canvas"} \
+                or line["vs_baseline"] is None:
+            raise AssertionError(f"[24a] bench_torch line: {line}")
+        ds = 0.0
+        for i, r in enumerate(res[:16]):
+            nb, _, nsc = base.det.detect(imgs[i], **BENCH_KW)
+            if not np.array_equal(nb, r.bboxes):
+                raise AssertionError(f"[24a] image {i}: boxes differ from the C library")
+            ds = max(ds, float(np.abs(nsc - r.scores).max()) if len(nb) else 0.0)
+        if ds > 2e-4:
+            raise AssertionError(f"[24a] scores differ from the C library by {ds}")
+    log(f"[24a] bench_torch.run (BENCH_REPS=1, one chunk, 1080p on), baseline {line['baseline']} "
+        f"on one core ({card}): {json.dumps(line)}; dense0_filter launches "
+        f"{launches['bench_torch']}; the batch's {sum(r.n for r in res[:16])} boxes identical "
+        f"to the C library, max |score| diff {ds:.3g}")
+
+    # (b) scripts/bench_1080p_torch.run over 4 frames at B=2
+    D0.scale_filter.launches = 0
+    line = B1080.run(model, frames[:4], 2, torch.device("cuda"))
+    torch.cuda.synchronize()
+    launches["bench_1080p"] = D0.scale_filter.launches
+    # warm 1 + 5 latency calls, warm 2 + timed 2 stream batches, 2 each
+    if launches["bench_1080p"] != 2 * (1 + 5 + 2 + 2) or set(line) != BENCH_1080P_KEYS:
+        raise AssertionError(f"[24b] bench_1080p_torch: {launches['bench_1080p']} launches, "
+                             f"line {line}")
+    log(f"[24b] bench_1080p_torch.run (B1080_FRAMES=4): {json.dumps(line)}; dense0_filter "
+        f"launches {launches['bench_1080p']}; phase 24 done in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def main() -> int:
@@ -2204,6 +2262,7 @@ def main() -> int:
     canvas_launches = canvas_tail_phase(model, vga, res, hd, res_hd)
     flagship_launches = flagship_phase(card)
     holdout_launches, fddb_synth_launches = holdout_phase(card)
+    bench_launches = bench_phase(card, model, vga)
     log("the times of both kernels' first versions are in PERF.md's kernel table")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
@@ -2233,6 +2292,9 @@ def main() -> int:
         # set to 0 just before each
         "launches_holdout_sweeps": holdout_launches,
         "launches_fddb_synth": fddb_synth_launches,
+        # the measurement entry points (phase 24: bench_torch.run,
+        # bench_1080p_torch.run), counts set to 0 just before each
+        "launches_bench": bench_launches,
         "max_abs_err": max(err, cpp["err"]),
         "ms": statistics.median([ms, ms2]),
         "head_ms": head_ms,

@@ -31,15 +31,16 @@ def test_import_pulls_in_no_jax():
     subprocess.run([sys.executable, "-c", code], check=True, env=env, cwd=ROOT)
 
 
-# the port's counterparts of the flagship workflow's scripts
-TORCH_SCRIPTS = sorted(glob.glob(os.path.join(ROOT, "scripts", "*_torch.py")))
+# the port's counterparts of the JAX package's scripts and bench.py
+TORCH_SCRIPTS = sorted(glob.glob(os.path.join(ROOT, "scripts", "*_torch.py"))) + [
+    os.path.join(ROOT, "bench_torch.py")]
 NO_CV2 = re.compile(r"import cv2\b|\bfrom cv2\b")
 
 
 def test_sources_name_no_jax():
-    """No source of the port, chip_smoke.py or the scripts/*_torch.py
-    counterparts names JAX or the JAX package; those scripts name no
-    OpenCV either."""
+    """No source of the port, chip_smoke.py, bench_torch.py or the
+    scripts/*_torch.py counterparts names JAX or the JAX package; those
+    scripts name no OpenCV either."""
     pat = re.compile(r"import jax\b|\bjda_tpu\.|\bfrom jda_tpu |\bimport jda_tpu\b")
     files = [os.path.join(ROOT, "chip_smoke.py")] + TORCH_SCRIPTS
     for d, _, names in os.walk(os.path.join(ROOT, "jda_tpu_torch")):
@@ -57,7 +58,7 @@ def test_sources_name_no_jax():
 def test_flagship_scripts_import_no_jax_or_cv2():
     """The flagship workflow's scripts import neither JAX, the JAX package
     nor OpenCV: the card's machine has none of them."""
-    mods = ", ".join(f"scripts.{os.path.basename(f)[:-3]}" for f in TORCH_SCRIPTS)
+    mods = ", ".join(os.path.relpath(f, ROOT)[:-3].replace(os.sep, ".") for f in TORCH_SCRIPTS)
     code = (
         f"import {mods}, sys; "
         "bad = [m for m in sys.modules if m in ('jax', 'cv2', 'jda_tpu') or "

@@ -41,6 +41,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from jda_tpu_torch import tracing
 from jda_tpu_torch.params import CascadeParams
 from jda_tpu_torch.ops import cascade as C
 from jda_tpu_torch.ops import dense0 as D0
@@ -280,12 +281,13 @@ class Detector:
         """Window ladder and per-scale dense tables for one canonical
         geometry (jdaDetect semantics, truncation), cached."""
         key = ("c", Hc, Wc, float(scale), min_size, max_size_c, self.rounding)
-        plan = self._plans.get(key)
-        if plan is None:
-            x, y, win, scales = enumerate_windows(Wc, Hc, scale, min_size, max_size_c)
-            plan = self._plan_windows(
-                key, Hc, Wc, x, y, win, scales, rounding=self.rounding
-            )
+        with tracing.span("plan"):
+            plan = self._plans.get(key)
+            if plan is None:
+                x, y, win, scales = enumerate_windows(Wc, Hc, scale, min_size, max_size_c)
+                plan = self._plan_windows(
+                    key, Hc, Wc, x, y, win, scales, rounding=self.rounding
+                )
         return plan
 
     def _plan_windows(
@@ -297,6 +299,7 @@ class Detector:
         (y0, x0) and its node tables are shifted there (ops/fused.py).
         Dense tables are built for single-scale models with a stage 0;
         host node tables are cached per (win, step, rounding)."""
+        tracing.count("plan.builds", 1)
         tabs = []
         for i, (w_, s_, _, _) in enumerate(
             scales if self.single_scale and self.T > 0 else ()
@@ -347,25 +350,27 @@ class Detector:
         """Place the images top-left in canonical [B, Hc, Wc] planes on the
         device.  On CUDA the planes are staged in a reused pinned host
         buffer and copied with non_blocking=True."""
-        dims = torch.zeros((B, 2), dtype=torch.int32)
-        for i, g in enumerate(grays):
-            dims[i, 0], dims[i, 1] = g.shape[1], g.shape[0]
-        if self.device.type != "cuda":
-            host = torch.zeros((B, Hc, Wc), dtype=torch.uint8)
-        else:
-            if self._pinned is None or tuple(self._pinned.shape) != (B, Hc, Wc):
-                self._pinned = torch.empty((B, Hc, Wc), dtype=torch.uint8).pin_memory()
-            elif self._upload_done is not None:
-                self._upload_done.synchronize()  # previous copy has read it
-            host = self._pinned
-            host.zero_()
-        for i, g in enumerate(grays):
-            host[i, : g.shape[0], : g.shape[1]] = torch.from_numpy(g)
-        imgs = host.to(self.device, non_blocking=True)
-        if self.device.type == "cuda":
-            self._upload_done = torch.cuda.Event()
-            self._upload_done.record()
-        return imgs, dims.to(self.device, non_blocking=True)
+        with tracing.span("upload"):
+            dims = torch.zeros((B, 2), dtype=torch.int32)
+            for i, g in enumerate(grays):
+                dims[i, 0], dims[i, 1] = g.shape[1], g.shape[0]
+            if self.device.type != "cuda":
+                host = torch.zeros((B, Hc, Wc), dtype=torch.uint8)
+            else:
+                if self._pinned is None or tuple(self._pinned.shape) != (B, Hc, Wc):
+                    self._pinned = torch.empty((B, Hc, Wc), dtype=torch.uint8).pin_memory()
+                elif self._upload_done is not None:
+                    with tracing.span("upload.wait"):
+                        self._upload_done.synchronize()  # previous copy has read it
+                host = self._pinned
+                host.zero_()
+            for i, g in enumerate(grays):
+                host[i, : g.shape[0], : g.shape[1]] = torch.from_numpy(g)
+            imgs = host.to(self.device, non_blocking=True)
+            if self.device.type == "cuda":
+                self._upload_done = torch.cuda.Event()
+                self._upload_done.record()
+            return imgs, dims.to(self.device, non_blocking=True)
 
     def _dense_tables(self, plan: dict) -> Optional[D0.ImageTables]:
         """The kernels' tables of a plan (ops/dense0.prepare_image), checked
@@ -631,18 +636,19 @@ class Detector:
         """jdaDetect-compatible detection (c/jda.c:443-480) of one image.
         `batch` bounds the windows per geometry batch of the non-fused
         path."""
-        if gray.dtype != np.uint8 or gray.ndim != 2:
-            raise ValueError("detect: gray must be a 2-D uint8 image")
-        if th is None:
-            th = self.final_th_default
-        if self._fused_enabled():
-            return self.detect_batch(
-                [gray], scale=scale, min_size=min_size, max_size=max_size, th=th,
-                nms_overlap=nms_overlap,
-            )[0]
-        return self._detect_unfused(
-            gray, scale, min_size, max_size, th, nms_overlap, batch
-        )
+        with tracing.call("detect", 1):
+            if gray.dtype != np.uint8 or gray.ndim != 2:
+                raise ValueError("detect: gray must be a 2-D uint8 image")
+            if th is None:
+                th = self.final_th_default
+            if self._fused_enabled():
+                return self.detect_batch(
+                    [gray], scale=scale, min_size=min_size, max_size=max_size, th=th,
+                    nms_overlap=nms_overlap,
+                )[0]
+            return self._detect_unfused(
+                gray, scale, min_size, max_size, th, nms_overlap, batch
+            )
 
     def detect_batch(
         self,
@@ -670,41 +676,42 @@ class Detector:
         all_gather_object hands every rank all results in input order.  The
         per-image fallback ignores `mesh`, as the JAX package does.
         """
-        part, group, nd = slice(None), None, 1
-        if mesh is not None:
-            group, rank, nd, device = dp_mesh(mesh)
-            if not same_device(device, self.device):
-                raise ValueError(
-                    f"the detector's device {self.device} is not this rank's "
-                    f"mesh device {device}"
-                )
-            part = block(len(grays), nd, rank)
-        if th is None:
-            th = self.final_th_default
-        if not self._fused_enabled():
-            return [
-                self.detect(
-                    g, scale=scale, min_size=min_size, max_size=max_size, th=th,
-                    nms_overlap=nms_overlap,
-                )
-                for g in grays
-            ]
-        if not grays:
-            return []
-        Hc, Wc, min_size, ms_c = self._canonical(grays, min_size, max_size)
-        plan = self._plan(Hc, Wc, scale, min_size, ms_c)
-        if plan["n"] == 0:
-            return [_empty(self.params.landmark_n) for _ in grays]
-        mine = grays[part]
-        results = []
-        if mine:
-            out = self._run(plan, mine, len(mine))
-            results = self._harvest_batch(plan, out, len(mine), th, nms_overlap)
-        if group is None:
-            return results
-        parts = [None] * nd
-        torch.distributed.all_gather_object(parts, results, group=group)
-        return [r for p in parts for r in p]
+        with tracing.call("detect_batch", len(grays)):
+            part, group, nd = slice(None), None, 1
+            if mesh is not None:
+                group, rank, nd, device = dp_mesh(mesh)
+                if not same_device(device, self.device):
+                    raise ValueError(
+                        f"the detector's device {self.device} is not this rank's "
+                        f"mesh device {device}"
+                    )
+                part = block(len(grays), nd, rank)
+            if th is None:
+                th = self.final_th_default
+            if not self._fused_enabled():
+                return [
+                    self.detect(
+                        g, scale=scale, min_size=min_size, max_size=max_size, th=th,
+                        nms_overlap=nms_overlap,
+                    )
+                    for g in grays
+                ]
+            if not grays:
+                return []
+            Hc, Wc, min_size, ms_c = self._canonical(grays, min_size, max_size)
+            plan = self._plan(Hc, Wc, scale, min_size, ms_c)
+            if plan["n"] == 0:
+                return [_empty(self.params.landmark_n) for _ in grays]
+            mine = grays[part]
+            results = []
+            if mine:
+                out = self._run(plan, mine, len(mine))
+                results = self._harvest_batch(plan, out, len(mine), th, nms_overlap)
+            if group is None:
+                return results
+            parts = [None] * nd
+            torch.distributed.all_gather_object(parts, results, group=group)
+            return [r for p in parts for r in p]
 
     def detect_stream(
         self,
@@ -720,71 +727,74 @@ class Detector:
         images share one plan; each chunk is uploaded from pinned host
         memory.  Results identical to detect_batch, which also serves the
         models the fused path does not."""
-        if th is None:
-            th = self.final_th_default
-        if not self._fused_enabled() or not grays:
-            return self.detect_batch(
-                grays, scale=scale, min_size=min_size, max_size=max_size, th=th,
-                nms_overlap=nms_overlap,
-            )
-        Hc, Wc, min_size, ms_c = self._canonical(grays, min_size, max_size)
-        plan = self._plan(Hc, Wc, scale, min_size, ms_c)
-        if plan["n"] == 0:
-            return [_empty(self.params.landmark_n) for _ in grays]
-        results: List[DetectionResult] = []
-        for i in range(0, len(grays), batch):
-            chunk = grays[i : i + batch]
-            out = self._run(plan, chunk, batch)
-            results.extend(
-                self._harvest_batch(plan, out, batch, th, nms_overlap)[: len(chunk)]
-            )
-        return results
+        with tracing.call("detect_stream", len(grays)):
+            if th is None:
+                th = self.final_th_default
+            if not self._fused_enabled() or not grays:
+                return self.detect_batch(
+                    grays, scale=scale, min_size=min_size, max_size=max_size, th=th,
+                    nms_overlap=nms_overlap,
+                )
+            Hc, Wc, min_size, ms_c = self._canonical(grays, min_size, max_size)
+            plan = self._plan(Hc, Wc, scale, min_size, ms_c)
+            if plan["n"] == 0:
+                return [_empty(self.params.landmark_n) for _ in grays]
+            results: List[DetectionResult] = []
+            for i in range(0, len(grays), batch):
+                chunk = grays[i : i + batch]
+                out = self._run(plan, chunk, batch)
+                results.extend(
+                    self._harvest_batch(plan, out, batch, th, nms_overlap)[: len(chunk)]
+                )
+            return results
 
     def _harvest_batch(self, plan, out, B, th, nms_overlap):
         """Host post-pass of one fused-batch output: per-image selection,
         NMS, window-frame -> image-frame shapes."""
-        sel = out["sel"].cpu().numpy()
-        score = out["score"].cpu().numpy()
-        shape = out["shape"].cpu().numpy()
-        alive = out["alive"].cpu().numpy()
-        self.last_stats = {
-            "windows": int(plan["n"]) * B,
-            "counts": out["counts"].tolist(),
-            "total_nvis": int(out["total_nvis"]),
-        }
+        with tracing.span("harvest"):
+            with tracing.span("harvest.wait"):
+                sel = out["sel"].cpu().numpy()
+            score = out["score"].cpu().numpy()
+            shape = out["shape"].cpu().numpy()
+            alive = out["alive"].cpu().numpy()
+            self.last_stats = {
+                "windows": int(plan["n"]) * B,
+                "counts": out["counts"].tolist(),
+                "total_nvis": int(out["total_nvis"]),
+            }
 
-        n = plan["n"]
-        x, y, win = plan["x"], plan["y"], plan["win"]
-        keep = alive & (score >= th)
-        bi = sel // n
-        wi = sel % n
-        results = []
-        for i in range(B):
-            m = keep & (bi == i)
-            cand = wi[m]
-            bboxes = np.stack([x[cand], y[cand], win[cand]], axis=1).astype(
-                np.int32
-            )
-            cscores = score[m]
-            cshapes = shape[m]
-            picked = NMS.nms_c(bboxes, cscores, nms_overlap)
-            bboxes = bboxes[picked]
-            cscores = cscores[picked]
-            cshapes = cshapes[picked]
-            sz = bboxes[:, 2:3].astype(np.float32)
-            outs = cshapes.copy()
-            outs[:, 0::2] = outs[:, 0::2] * sz + bboxes[:, 0:1]
-            outs[:, 1::2] = outs[:, 1::2] * sz + bboxes[:, 1:2]
-            results.append(
-                DetectionResult(
-                    len(picked),
-                    self.params.landmark_n,
-                    bboxes,
-                    outs,
-                    cscores,
+            n = plan["n"]
+            x, y, win = plan["x"], plan["y"], plan["win"]
+            keep = alive & (score >= th)
+            bi = sel // n
+            wi = sel % n
+            results = []
+            for i in range(B):
+                m = keep & (bi == i)
+                cand = wi[m]
+                bboxes = np.stack([x[cand], y[cand], win[cand]], axis=1).astype(
+                    np.int32
                 )
-            )
-        return results
+                cscores = score[m]
+                cshapes = shape[m]
+                picked = NMS.nms_c(bboxes, cscores, nms_overlap)
+                bboxes = bboxes[picked]
+                cscores = cscores[picked]
+                cshapes = cshapes[picked]
+                sz = bboxes[:, 2:3].astype(np.float32)
+                outs = cshapes.copy()
+                outs[:, 0::2] = outs[:, 0::2] * sz + bboxes[:, 0:1]
+                outs[:, 1::2] = outs[:, 1::2] * sz + bboxes[:, 1:2]
+                results.append(
+                    DetectionResult(
+                        len(picked),
+                        self.params.landmark_n,
+                        bboxes,
+                        outs,
+                        cscores,
+                    )
+                )
+            return results
 
 
 def detect(

@@ -28,6 +28,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from jda_tpu_torch import tracing
+
 Tensor = torch.Tensor
 
 
@@ -138,52 +140,54 @@ def carts_descend(
 
     Returns (leaves [N, C] int32, b [N, C] float32 leaf scores).
     """
-    C, node_n = chunk["feat_th"].shape
-    N = state["shape"].shape[0]
-    shape_x = state["shape"][:, 0::2]  # [N, L]
-    shape_y = state["shape"][:, 1::2]
-    to_int = round_half_away if rounding else trunc_toward_zero
-    cart = torch.arange(C, device=flat_img.device)[None, :]  # [1, C]
+    with tracing.span("descend"):
+        C, node_n = chunk["feat_th"].shape
+        N = state["shape"].shape[0]
+        tracing.count("tail.lane_carts", N * C)
+        shape_x = state["shape"][:, 0::2]  # [N, L]
+        shape_y = state["shape"][:, 1::2]
+        to_int = round_half_away if rounding else trunc_toward_zero
+        cart = torch.arange(C, device=flat_img.device)[None, :]  # [1, C]
 
-    def level(a: Tensor, node: Tensor) -> Tensor:
-        # the [N, C] pyramid-level column of a [N, 3] geometry field
-        if single_scale:
-            return a[:, 0:1].expand(N, C)
-        return a.gather(1, chunk["scale"][cart, node].to(torch.int64))
-
-    node = torch.zeros((N, C), dtype=torch.int64, device=flat_img.device)
-    for _ in range(depth - 1):
-        base = level(state["base"], node).to(torch.int64)
-        stride = level(state["stride"], node).to(torch.int64)
-        pw = level(state["pw"], node)
-        ph = level(state["ph"], node)
-
-        def pixel(lmk_f: str, off_f: str) -> Tensor:
-            lmk = chunk[lmk_f][cart, node].to(torch.int64)
-            off = chunk[off_f][cart, node]  # [N, C, 2]
-            px = shape_x.gather(1, lmk)
-            py = shape_y.gather(1, lmk)
-            ox, oy = off[..., 0], off[..., 1]
-            if stp is not None:
-                ox, oy = (
-                    stp[:, 0, 0, None] * ox + stp[:, 0, 1, None] * oy,
-                    stp[:, 1, 0, None] * ox + stp[:, 1, 1, None] * oy,
-                )
-            x = to_int((px + ox) * pw.to(torch.float32))
-            y = to_int((py + oy) * ph.to(torch.float32))
-            x = torch.minimum(torch.clamp(x, min=0), pw - 1)
-            y = torch.minimum(torch.clamp(y, min=0), ph - 1)
-            idx = base + y.to(torch.int64) * stride + x
+        def level(a: Tensor, node: Tensor) -> Tensor:
+            # the [N, C] pyramid-level column of a [N, 3] geometry field
             if single_scale:
-                return flat_img[idx].to(torch.int32)
-            return take_fill(flat_img, idx)
+                return a[:, 0:1].expand(N, C)
+            return a.gather(1, chunk["scale"][cart, node].to(torch.int64))
 
-        v = pixel("lmk1", "off1") - pixel("lmk2", "off2")
-        bit = v > chunk["feat_th"][cart, node]
-        node = 2 * node + 1 + bit.to(torch.int64)
-    leaves = node - node_n
-    b = chunk["leaf_scores"][cart, leaves]
-    return leaves.to(torch.int32), b
+        node = torch.zeros((N, C), dtype=torch.int64, device=flat_img.device)
+        for _ in range(depth - 1):
+            base = level(state["base"], node).to(torch.int64)
+            stride = level(state["stride"], node).to(torch.int64)
+            pw = level(state["pw"], node)
+            ph = level(state["ph"], node)
+
+            def pixel(lmk_f: str, off_f: str) -> Tensor:
+                lmk = chunk[lmk_f][cart, node].to(torch.int64)
+                off = chunk[off_f][cart, node]  # [N, C, 2]
+                px = shape_x.gather(1, lmk)
+                py = shape_y.gather(1, lmk)
+                ox, oy = off[..., 0], off[..., 1]
+                if stp is not None:
+                    ox, oy = (
+                        stp[:, 0, 0, None] * ox + stp[:, 0, 1, None] * oy,
+                        stp[:, 1, 0, None] * ox + stp[:, 1, 1, None] * oy,
+                    )
+                x = to_int((px + ox) * pw.to(torch.float32))
+                y = to_int((py + oy) * ph.to(torch.float32))
+                x = torch.minimum(torch.clamp(x, min=0), pw - 1)
+                y = torch.minimum(torch.clamp(y, min=0), ph - 1)
+                idx = base + y.to(torch.int64) * stride + x
+                if single_scale:
+                    return flat_img[idx].to(torch.int32)
+                return take_fill(flat_img, idx)
+
+            v = pixel("lmk1", "off1") - pixel("lmk2", "off2")
+            bit = v > chunk["feat_th"][cart, node]
+            node = 2 * node + 1 + bit.to(torch.int64)
+        leaves = node - node_n
+        b = chunk["leaf_scores"][cart, leaves]
+        return leaves.to(torch.int32), b
 
 
 def score_chain(
@@ -196,13 +200,14 @@ def score_chain(
     """Sequential score/threshold chain in the reference op order
     (c/jda.c:395-399): score = (score + leaf - mean) / std while alive;
     nvis counts the visit; then reject if score < th."""
-    mean, std, cth = chunk["mean"], chunk["std"], chunk["cart_th"]
-    for k in range(b.shape[1]):
-        s_new = (score + b[:, k] - mean[k]) / std[k]
-        score = torch.where(alive, s_new, score)
-        nvis = nvis + alive.to(torch.int32)
-        alive = alive & (score >= cth[k])
-    return score, alive, nvis
+    with tracing.span("score_chain"):
+        mean, std, cth = chunk["mean"], chunk["std"], chunk["cart_th"]
+        for k in range(b.shape[1]):
+            s_new = (score + b[:, k] - mean[k]) / std[k]
+            score = torch.where(alive, s_new, score)
+            nvis = nvis + alive.to(torch.int32)
+            alive = alive & (score >= cth[k])
+        return score, alive, nvis
 
 
 def run_cart_chunk(
@@ -260,30 +265,31 @@ def apply_regression(
 
     Only stage survivors receive the update (rejected windows stop moving).
     """
-    n, K = leaves.shape
-    L2 = W_t.shape[-1]
-    Wk = W_t.reshape(K, leaf_n, L2)
-    lv = leaves.to(torch.int64)
-    if exact:
-        delta = state["shape"] if stp is None else torch.zeros_like(state["shape"])
-        for k in range(K):
-            delta = delta + Wk[k][lv[:, k]]
-    else:
-        onehot = torch.nn.functional.one_hot(lv, leaf_n).to(W_t.dtype)
-        delta = onehot.reshape(n, K * leaf_n) @ W_t
-    if stp is not None:
-        dx, dy = delta[:, 0::2], delta[:, 1::2]
-        delta = torch.stack(
-            [
-                stp[:, 0, 0, None] * dx + stp[:, 0, 1, None] * dy,
-                stp[:, 1, 0, None] * dx + stp[:, 1, 1, None] * dy,
-            ],
-            dim=2,
-        ).reshape(n, L2)
-    new_shape = delta if exact and stp is None else state["shape"] + delta
-    out = dict(state)
-    out["shape"] = torch.where(state["alive"][:, None], new_shape, state["shape"])
-    return out
+    with tracing.span("regression"):
+        n, K = leaves.shape
+        L2 = W_t.shape[-1]
+        Wk = W_t.reshape(K, leaf_n, L2)
+        lv = leaves.to(torch.int64)
+        if exact:
+            delta = state["shape"] if stp is None else torch.zeros_like(state["shape"])
+            for k in range(K):
+                delta = delta + Wk[k][lv[:, k]]
+        else:
+            onehot = torch.nn.functional.one_hot(lv, leaf_n).to(W_t.dtype)
+            delta = onehot.reshape(n, K * leaf_n) @ W_t
+        if stp is not None:
+            dx, dy = delta[:, 0::2], delta[:, 1::2]
+            delta = torch.stack(
+                [
+                    stp[:, 0, 0, None] * dx + stp[:, 0, 1, None] * dy,
+                    stp[:, 1, 0, None] * dx + stp[:, 1, 1, None] * dy,
+                ],
+                dim=2,
+            ).reshape(n, L2)
+        new_shape = delta if exact and stp is None else state["shape"] + delta
+        out = dict(state)
+        out["shape"] = torch.where(state["alive"][:, None], new_shape, state["shape"])
+        return out
 
 
 _STAGE_FIELDS = (

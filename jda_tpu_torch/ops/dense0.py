@@ -39,6 +39,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from jda_tpu_torch import tracing
 from jda_tpu_torch.ops import _build
 from jda_tpu_torch.ops.resize import cv_fixed_combine, cv_linear_taps_fixed
 
@@ -642,7 +643,7 @@ def launch(
     )
     if rc != 0:
         raise RuntimeError(f"dense0_filter: launch failed, cudaError {rc}")
-    scale_filter.launches += launched.value
+    tracing.count("dense0_filter.launches", launched.value)
     return scratch
 
 
@@ -677,10 +678,10 @@ def scale_filter(
     and with emit_lbf the packed leaf words [B, ny, nx, lbf_words(K)].
 
     On CUDA tensors this launches the `dense0_filter` kernels (built at first
-    use) on a ladder of this one scale, and counts them in
-    `scale_filter.launches`; the tables are checked and prepared at every
-    call, which reads them back once.  On CPU tensors it runs
-    `scale_filter_reference`.  Score, alive and nvis are bit-identical
+    use) on a ladder of this one scale, and counts them in the
+    `dense0_filter.launches` counter (tracing.py); the tables are checked
+    and prepared at every call, which reads them back once.  On CPU tensors
+    it runs `scale_filter_reference`.  Score, alive and nvis are bit-identical
     between the two.  The kernel stops a window at the cart that rejects
     it, so its LBF words are defined only where alive is true.
     """
@@ -701,9 +702,6 @@ def scale_filter(
     return _filter_cuda(img, t, (ny, nx), emit_lbf)
 
 
-scale_filter.launches = 0
-
-
 def stage0_filter_all_scales(
     img: Tensor,  # [B, H, W] uint8
     tabs: Sequence[Tuple[Tensor, Tensor]],  # (tabi, tabf) per scan scale
@@ -722,36 +720,37 @@ def stage0_filter_all_scales(
     [B, n, lbf_words(K)], defined where alive is true.
 
     On CUDA tensors the whole ladder is one call of `dense0_filter` (two
-    kernels, counted in `scale_filter.launches`) that writes the flat
+    kernels, counted in `dense0_filter.launches`) that writes the flat
     outputs; `prepared` takes the tables of `prepare_image` for this
     geometry, so that a caller who keeps them with its plan pays their
     check once and a call does not synchronise.  On CPU tensors the plain
     filter runs scale by scale.
     """
-    if img.device.type == "cpu":
-        B = img.shape[0]
-        parts = [[], [], [], []]
-        for (_, step, ny, nx), (tabi, tabf) in zip(meta, tabs):
-            out = scale_filter_reference(
-                img, tabi, tabf, step=step, ny=ny, nx=nx, depth=depth,
-                emit_lbf=emit_lbf,
+    with tracing.span("dense0"):
+        if img.device.type == "cpu":
+            B = img.shape[0]
+            parts = [[], [], [], []]
+            for (_, step, ny, nx), (tabi, tabf) in zip(meta, tabs):
+                out = scale_filter_reference(
+                    img, tabi, tabf, step=step, ny=ny, nx=nx, depth=depth,
+                    emit_lbf=emit_lbf,
+                )
+                for i, o in enumerate(out):
+                    parts[i].append(o.reshape((B, ny * nx) + o.shape[3:]))
+            return tuple(torch.cat(p, dim=1) for p in parts if p)
+        if img.device.type != "cuda":
+            raise ValueError(f"dense0_filter: no kernel for device {img.device}")
+        if img.dtype != torch.uint8 or img.dim() != 3 or not img.is_contiguous():
+            raise ValueError("dense0_filter: img must be a contiguous uint8 [B, H, W]")
+        if prepared is None:
+            prepared = prepare_image(
+                tabs, meta=meta, depth=depth, H=img.shape[1], W=img.shape[2],
+                device=img.device, name="dense0_filter",
             )
-            for i, o in enumerate(out):
-                parts[i].append(o.reshape((B, ny * nx) + o.shape[3:]))
-        return tuple(torch.cat(p, dim=1) for p in parts if p)
-    if img.device.type != "cuda":
-        raise ValueError(f"dense0_filter: no kernel for device {img.device}")
-    if img.dtype != torch.uint8 or img.dim() != 3 or not img.is_contiguous():
-        raise ValueError("dense0_filter: img must be a contiguous uint8 [B, H, W]")
-    if prepared is None:
-        prepared = prepare_image(
-            tabs, meta=meta, depth=depth, H=img.shape[1], W=img.shape[2],
-            device=img.device, name="dense0_filter",
-        )
-    elif prepared.depth != depth or prepared.meta != tuple(tuple(m) for m in meta):
-        raise ValueError("dense0_filter: prepared tables are of another geometry")
-    _check_images("dense0_filter", img, prepared)
-    return _filter_cuda(img, prepared, (prepared.n,), emit_lbf)
+        elif prepared.depth != depth or prepared.meta != tuple(tuple(m) for m in meta):
+            raise ValueError("dense0_filter: prepared tables are of another geometry")
+        _check_images("dense0_filter", img, prepared)
+        return _filter_cuda(img, prepared, (prepared.n,), emit_lbf)
 
 
 # ---------------------------------------------------------------------------
@@ -810,7 +809,7 @@ def launch_image(
     )
     if rc != 0:
         raise RuntimeError(f"dense0_image: launch failed, cudaError {rc}")
-    stage0_filter_image.launches += launched.value
+    tracing.count("dense0_image.launches", launched.value)
     return scratch
 
 
@@ -828,35 +827,33 @@ def stage0_filter_image(
 
     On a CUDA tensor this is one call of `dense0_image` (built at first use;
     two kernels, the head and the survivor phase, counted in
-    `stage0_filter_image.launches`); `prepared` takes the tables of
+    `dense0_image.launches`); `prepared` takes the tables of
     `prepare_image` for this geometry, so that a caller who keeps them pays
     their check once.  On a CPU tensor it runs
     `stage0_filter_image_reference`.  The two are bit-identical.
     """
-    if img.dim() != 2:
-        raise ValueError("dense0_image: img must be one [H, W] image")
-    if img.device.type == "cpu":
-        return stage0_filter_image_reference(img, tabs, meta=meta, depth=depth)
-    if img.device.type != "cuda":
-        raise ValueError(f"dense0_image: no kernel for device {img.device}")
-    if img.dtype != torch.uint8 or not img.is_contiguous():
-        raise ValueError("dense0_image: img must be a contiguous uint8 [H, W]")
-    H, W = img.shape
-    if prepared is None:
-        prepared = prepare_image(
-            tabs, meta=meta, depth=depth, H=H, W=W, device=img.device
+    with tracing.span("dense0"):
+        if img.dim() != 2:
+            raise ValueError("dense0_image: img must be one [H, W] image")
+        if img.device.type == "cpu":
+            return stage0_filter_image_reference(img, tabs, meta=meta, depth=depth)
+        if img.device.type != "cuda":
+            raise ValueError(f"dense0_image: no kernel for device {img.device}")
+        if img.dtype != torch.uint8 or not img.is_contiguous():
+            raise ValueError("dense0_image: img must be a contiguous uint8 [H, W]")
+        H, W = img.shape
+        if prepared is None:
+            prepared = prepare_image(
+                tabs, meta=meta, depth=depth, H=H, W=W, device=img.device
+            )
+        elif prepared.depth != depth or prepared.meta != tuple(tuple(m) for m in meta):
+            raise ValueError("dense0_image: prepared tables are of another geometry")
+        _check_images("dense0_image", img, prepared)
+        dev = img.device
+        out = (
+            torch.empty(prepared.n, dtype=torch.float32, device=dev),
+            torch.empty(prepared.n, dtype=torch.bool, device=dev),
+            torch.empty(prepared.n, dtype=torch.int32, device=dev),
         )
-    elif prepared.depth != depth or prepared.meta != tuple(tuple(m) for m in meta):
-        raise ValueError("dense0_image: prepared tables are of another geometry")
-    _check_images("dense0_image", img, prepared)
-    dev = img.device
-    out = (
-        torch.empty(prepared.n, dtype=torch.float32, device=dev),
-        torch.empty(prepared.n, dtype=torch.bool, device=dev),
-        torch.empty(prepared.n, dtype=torch.int32, device=dev),
-    )
-    launch_image(img, prepared, out)
-    return out
-
-
-stage0_filter_image.launches = 0
+        launch_image(img, prepared, out)
+        return out

@@ -33,6 +33,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from jda_tpu_torch import tracing
 from jda_tpu_torch.ops import cascade as C
 from jda_tpu_torch.ops import dense0 as D0
 from jda_tpu_torch.ops import mxu_tail as MT
@@ -49,8 +50,9 @@ GATHER_MIN = 257  # smallest win that stays on the gather tail
 
 def compact(alive: Tensor) -> Tuple[Tensor, int]:
     """Indices (int64, ascending) of the alive lanes and their count."""
-    sel = torch.nonzero(alive).reshape(-1)
-    return sel, int(sel.shape[0])
+    with tracing.span("compact"):
+        sel = torch.nonzero(alive).reshape(-1)
+        return sel, int(sel.shape[0])
 
 
 def unpack_lbf(words: Tensor, K: int) -> Tensor:
@@ -252,36 +254,38 @@ def run_fused(
             continue
 
         # -- 3. stage-0 leaves and regression ----------------------------------
-        if s0_lbf:
-            leaves0 = unpack_lbf(dense[3].reshape(B * n, -1)[sel_global], K)
-        else:
-            leaves0, _ = descend(C.stage_params(dev, 0), state)
-        state = C.apply_regression(dev["W"][0], leaves0, state, leaf_n=leaf_n)
+        with tracing.span("stage", t=0):
+            if s0_lbf:
+                leaves0 = unpack_lbf(dense[3].reshape(B * n, -1)[sel_global], K)
+            else:
+                leaves0, _ = descend(C.stage_params(dev, 0), state)
+            state = C.apply_regression(dev["W"][0], leaves0, state, leaf_n=leaf_n)
 
         # -- 4. stages 1..T-1 ---------------------------------------------------
         for t in range(1, T):
-            sp = C.stage_params(dev, t)
-            if split:
-                state, leavesA = run_chunk(
-                    {k: v[:STAGE_SPLIT] for k, v in sp.items()}, state
-                )
-                state, sel_global, nvis_img, leavesA = do_compact(
-                    state, sel_global, nvis_img, leavesA
-                )
-                state, leavesB = run_chunk(
-                    {k: v[STAGE_SPLIT:] for k, v in sp.items()}, state
-                )
-                leaves = torch.cat([leavesA, leavesB], dim=1)
-            else:
-                state, leaves = run_chunk(sp, state)
-            state = C.apply_regression(dev["W"][t], leaves, state, leaf_n=leaf_n)
-            if t < T - 1:
-                state, sel_global, nvis_img, _ = do_compact(
-                    state, sel_global, nvis_img
-                )
-                if not sel_global.numel():  # every lane rejected
-                    counts.extend([0] * ((T - 1 - t) * split + T - 2 - t))
-                    break
+            with tracing.span("stage", t=t):
+                sp = C.stage_params(dev, t)
+                if split:
+                    state, leavesA = run_chunk(
+                        {k: v[:STAGE_SPLIT] for k, v in sp.items()}, state
+                    )
+                    state, sel_global, nvis_img, leavesA = do_compact(
+                        state, sel_global, nvis_img, leavesA
+                    )
+                    state, leavesB = run_chunk(
+                        {k: v[STAGE_SPLIT:] for k, v in sp.items()}, state
+                    )
+                    leaves = torch.cat([leavesA, leavesB], dim=1)
+                else:
+                    state, leaves = run_chunk(sp, state)
+                state = C.apply_regression(dev["W"][t], leaves, state, leaf_n=leaf_n)
+                if t < T - 1:
+                    state, sel_global, nvis_img, _ = do_compact(
+                        state, sel_global, nvis_img
+                    )
+                    if not sel_global.numel():  # every lane rejected
+                        counts.extend([0] * ((T - 1 - t) * split + T - 2 - t))
+                        break
 
         # post-dense increments of every lane still resident after stage T-1
         nvis_img = bank_nvis(

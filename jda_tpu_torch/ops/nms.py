@@ -19,36 +19,39 @@ from __future__ import annotations
 
 import numpy as np
 
+from jda_tpu_torch import tracing
+
 
 def nms_c(bboxes: np.ndarray, scores: np.ndarray, overlap: float = 0.3) -> np.ndarray:
     """Greedy square-box NMS; returns indices of kept boxes in input order."""
-    n = len(scores)
-    if n == 0:
-        return np.zeros((0,), np.int64)
-    order = np.argsort(-scores, kind="stable")
-    flag = np.ones(n, bool)
-    x = bboxes[:, 0].astype(np.int64)
-    y = bboxes[:, 1].astype(np.int64)
-    sz = bboxes[:, 2].astype(np.int64)
-    area = sz * sz
-    for i in range(n - 1):
-        k1 = order[i]
-        if not flag[k1]:
-            continue
-        rest = order[i + 1 :]
-        rest = rest[flag[rest]]
-        if rest.size == 0:
-            continue
-        x1 = np.maximum(x[k1], x[rest])
-        y1 = np.maximum(y[k1], y[rest])
-        x2 = np.minimum(x[k1] + sz[k1], x[rest] + sz[rest])
-        y2 = np.minimum(y[k1] + sz[k1], y[rest] + sz[rest])
-        w = np.maximum(0, x2 - x1)
-        h = np.maximum(0, y2 - y1)
-        inter = (w * h).astype(np.float32)
-        ov = inter / (area[k1] + area[rest] - w * h).astype(np.float32)
-        flag[rest[ov > overlap]] = False
-    return np.flatnonzero(flag)
+    with tracing.span("nms"):
+        n = len(scores)
+        if n == 0:
+            return np.zeros((0,), np.int64)
+        order = np.argsort(-scores, kind="stable")
+        flag = np.ones(n, bool)
+        x = bboxes[:, 0].astype(np.int64)
+        y = bboxes[:, 1].astype(np.int64)
+        sz = bboxes[:, 2].astype(np.int64)
+        area = sz * sz
+        for i in range(n - 1):
+            k1 = order[i]
+            if not flag[k1]:
+                continue
+            rest = order[i + 1 :]
+            rest = rest[flag[rest]]
+            if rest.size == 0:
+                continue
+            x1 = np.maximum(x[k1], x[rest])
+            y1 = np.maximum(y[k1], y[rest])
+            x2 = np.minimum(x[k1] + sz[k1], x[rest] + sz[rest])
+            y2 = np.minimum(y[k1] + sz[k1], y[rest] + sz[rest])
+            w = np.maximum(0, x2 - x1)
+            h = np.maximum(0, y2 - y1)
+            inter = (w * h).astype(np.float32)
+            ov = inter / (area[k1] + area[rest] - w * h).astype(np.float32)
+            flag[rest[ov > overlap]] = False
+        return np.flatnonzero(flag)
 
 
 def nms_cpp(rects: np.ndarray, scores: np.ndarray, overlap: float = 0.3) -> np.ndarray:

@@ -234,16 +234,16 @@ def detect_on_mesh(mesh, params, imgs, env: Optional[Dict[str, str]] = None, **k
     `env` set around the call (e.g. JDA_TPU_FUSED).  Returns the results
     and the launches of the two stage-0 kernels (dense0_filter,
     dense0_image) during the call."""
+    from jda_tpu_torch import tracing
     from jda_tpu_torch.detect import Detector
-    from jda_tpu_torch.ops import dense0 as D0
 
     det = Detector(params, device=dp_mesh(mesh)[3])
     saved = {k: os.environ.get(k) for k in env or {}}
     os.environ.update(env or {})
     try:
-        D0.scale_filter.launches = D0.stage0_filter_image.launches = 0
-        results = det.detect_batch(imgs, mesh=mesh, **kw)
-        launches = (D0.scale_filter.launches, D0.stage0_filter_image.launches)
+        with tracing.counting() as n:
+            results = det.detect_batch(imgs, mesh=mesh, **kw)
+        launches = (n.get("dense0_filter.launches", 0), n.get("dense0_image.launches", 0))
     finally:
         for k, v in saved.items():
             if v is None:

@@ -1,10 +1,9 @@
-"""Logging, timers, and evaluation utilities (reference common.cpp)."""
+"""Logging and evaluation utilities (reference common.cpp)."""
 
 from __future__ import annotations
 
 import os
 import time
-from contextlib import contextmanager
 from typing import Sequence, Tuple, Union
 
 import numpy as np
@@ -87,14 +86,6 @@ def log(msg: str) -> None:
     """Timestamped stdout log (LOG, common.cpp:17-28)."""
     stamp = time.strftime("%Y-%m-%d %H:%M:%S")
     print(f"[{stamp}] {msg}", flush=True)
-
-
-@contextmanager
-def timer(label: str):
-    """Scoped wall-clock timer (TIMER_BEGIN/END, common.hpp:24-50)."""
-    t0 = time.perf_counter()
-    yield
-    log(f"{label}: {time.perf_counter() - t0:.4f} s")
 
 
 def calc_mean_error(

@@ -1,157 +1,134 @@
 #!/usr/bin/env python3
 """Where the time goes in jda_tpu_torch's detection path, on one CUDA card.
 
-    python3 scripts/profile_torch_detect.py
+    python3 scripts/profile_torch_detect.py [paths] [cost] [cells]
+        [--cells a,b] [--out FILE]
 
-For the bench shapes (VGA at B=16, 1080p at B=4; T=5/K=540 synthetic model
-with the realistic drop profile; scale 1.25, min 24, th -0.5) it prints
+Reads the program's own spans and counters (jda_tpu_torch/tracing.py)
+beside a device-only profile, on the one clock both use.  Three parts
+(all by default):
 
-  * host wall time per phase of one fused batch: upload, dense stage-0
-    filter, compactions, stage-0 leaf unpack, cart chunks, regressions and
-    the host harvest (each phase synchronises the device before and after,
-    so the phases add up to a slower batch than the unsynchronised one);
-  * from torch.profiler over one unsynchronised batch: the device's busy
-    time (sum of kernel times), the number of kernels launched and the
-    device's idle share of the batch's wall time; beside it the launches
-    of the hand-written stage-0 kernels in that batch (`dense0_filter`,
-    `dense0_image`: a head and a survivor kernel per call);
-  * the same two readings for the non-fused path (JDA_TPU_FUSED=0), one
-    image per call: `Detector.detect` of the bench model on one VGA image
-    and one 1080p frame (dense filter of the whole ladder in one
-    `dense0_image` call, then cascade_full on the survivors), and of a
-    multi-scale model of the same width on one VGA image (pyramid,
-    prefilter and stage loop of `_run_batch`);
-  * the same two readings for the C++-semantics path (CppDetector, the
-    default Config) with the trained flagship model
-    (models/flagship_synth.model) on VGA scenes with planted faces
-    (chip_smoke.make_scene): detect_batch with method 1 at B=8, and one
-    detect call per image with method 1 and with method 0; and a
-    multi-scale model's method 0 (the plain dense multi-scale filter);
-  * the card, as nvidia-smi gives its name and power limit.
+  paths  For the bench shapes (VGA at B=16, 1080p at B=4; T=5/K=540
+         synthetic model with the realistic drop profile; scale 1.25, min
+         24, th -0.5), the non-fused path (JDA_TPU_FUSED=0: the same model
+         on one VGA image and one 1080p frame, a multi-scale model on one
+         VGA image) and the C++-semantics path (CppDetector, the trained
+         flagship model models/flagship_synth.model, VGA scenes with
+         planted faces: detect_batch with method 1 at B=8, detect with
+         method 1 and 0, a multi-scale model's method 0): one call
+         unsynchronised without tracing, then one with tracing on, its
+         host self time per span and its counters; then one call under the
+         profiler: the device's busy time, the kernels launched (the
+         stage-0 filters' from their counters), the idle share and the
+         idle time put down to the innermost span open during it.
+  cost   What tracing costs when on: bench's VGA stream (64 images,
+         detect_stream at B=16) with tracing off and on in turns, RUNS
+         runs each; and the kernels of one B=16 call with tracing off and
+         on (tracing launches none).
+  cells  The benchmark's cells (BENCHMARK.json, built by
+         benchmark/harness.py from SEED): two warm calls, then CALLS
+         calls each profiled in a cycle of its own as the benchmark's
+         traced run does, with the program's spans: idle share, the share
+         of idle time inside a span and inside `call`'s own time, idle by
+         span, host ms of the survivor tail and of the detector API per
+         image and per call, and the tail's lane use against the
+         reference's cart visits.
+
+Ends with the card's name and power limit; --out writes every reading to
+FILE as JSON.
 """
 
-import collections
+import argparse
+import json
 import os
+import statistics
 import subprocess
 import sys
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 from chip_smoke import make_image, make_scene  # noqa: E402
 
 KW = dict(scale=1.25, min_size=24, max_size=-1, th=-0.5)
+TOP = 8  # spans and idle labels printed per path
+RUNS = 7  # runs each way of the cost part
+SEED = 4011  # the cells part's pool and batches
+CALLS = 12  # profiled calls per cell
 
 
-def patches_for(kind):
-    """(module or class, attribute, label) of the phases timed for a cell
-    kind: "fused", "unfused" or "cpp"."""
-    from jda_tpu_torch.cascador import CppDetector
-    from jda_tpu_torch.detect import Detector
-    from jda_tpu_torch.ops import cascade as C
-    from jda_tpu_torch.ops import dense0 as D0
-    from jda_tpu_torch.ops import fused as F
-    from jda_tpu_torch.ops import nms as NMS
-    from jda_tpu_torch.ops import resize as R
-
-    if kind == "cpp":
-        return [
-            (R, "cv2_resize", "cv2_resize: pyramid, planes (host)"),
-            (CppDetector, "_patch_rows", "window patches (host, multi-scale)"),
-            (D0, "stage0_filter_all_scales", "dense stage-0 (dense0_filter)"),
-            (Detector, "_dense_filter", "dense stage-0 (dense0_image)"),
-            (D0, "stage0_filter_all_scales_ms", "dense stage-0 multi-scale (plain)"),
-            (F, "compact", "compaction"),
-            (C, "carts_descend", "tree descent"),
-            (C, "score_chain", "score chain"),
-            (C, "apply_regression", "exact regression"),
-            (Detector, "_upload", "upload"),
-            (NMS, "nms_cpp", "NMS (host)"),
-        ]
-    DT = sys.modules[Detector.__module__]
-    if kind == "unfused":
-        return [
-            (R, "pyramid_c", "pyramid (host)"),
-            (DT, "window_geometry", "window geometry (host)"),
-            (Detector, "_dense_filter", "dense stage-0 filter (dense0_image)"),
-            (C, "carts_descend", "tree descent"),
-            (C, "score_chain", "score chain"),
-            (C, "apply_regression", "exact regression"),
-            (NMS, "nms_c", "NMS (host)"),
-        ]
-    return [
-        (D0, "stage0_filter_all_scales", "dense stage-0 filter"),
-        (F, "compact", "compaction"),
-        (F, "unpack_lbf", "stage-0 leaf unpack"),
-        (C, "carts_descend", "tree descent (stages 1-4)"),
-        (C, "score_chain", "score chain (stages 1-4)"),
-        (C, "apply_regression", "exact regression (stages 0-4)"),
-        (Detector, "_upload", "upload"),
-        (Detector, "_harvest_batch", "harvest + NMS (host)"),
-    ]
-
-
-def phase_times(run, kind):
-    """Synchronised host time per instrumented phase of one call of `run`
-    (a fused batch, or one `detect` call per image)."""
-    import torch
-
-    acc = collections.OrderedDict()
-    saved = []
-    for mod, name, label in patches_for(kind):
-        fn = getattr(mod, name)
-        saved.append((mod, name, fn))
-
-        def timed(*a, _fn=fn, _label=label, **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = _fn(*a, **k)
-            torch.cuda.synchronize()
-            acc[_label] = acc.get(_label, 0.0) + time.perf_counter() - t0
-            return out
-
-        setattr(mod, name, timed)
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        total = time.perf_counter() - t0
-    finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
-    return total, acc
-
-
-def device_busy(run):
+def profiled(fn, on=True):
+    """fn() under the device profiler, with tracing on (or off): (its
+    result, the device operations [(start ns, end ns, name)], the window's
+    bounds in ns, the spans and the counters)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from jda_tpu_torch.ops import dense0 as D0
+    from jda_tpu_torch import tracing
 
-    before = D0.scale_filter.launches + D0.stage0_filter_image.launches
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        if on:
+            tracing.start()
+        w0 = time.time_ns()
+        out = fn()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    busy_us = 0.0
-    kernels = 0
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            busy_us += ev.device_time_total
-            kernels += 1
-    dense = D0.scale_filter.launches + D0.stage0_filter_image.launches - before
-    return wall, busy_us / 1e6, kernels, dense
+        w1 = time.time_ns()
+        tracing.stop()
+        spans, counters = tracing.drain()
+    ops = [(e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
+           for e in prof.profiler.kineto_results.events()
+           if e.device_type() == torch.autograd.DeviceType.CUDA]
+    return out, ops, w0, w1, spans, counters
 
 
-def main():
+def kernels(ops):
+    return sum(not name.startswith(("Memcpy", "Memset")) for _, _, name in ops)
+
+
+def traced(fn):
+    """fn() unsynchronised with tracing on: (seconds, spans, counters)."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("profile_torch_detect: no CUDA device", file=sys.stderr)
-        return 2
+    from jda_tpu_torch import tracing
+
+    torch.cuda.synchronize()
+    tracing.start()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    tracing.stop()
+    return (dt,) + tracing.drain()
+
+
+def busy_s(ops):
+    from benchmark import yardstick as Y
+
+    return Y.union_seconds((s, e) for s, e, _ in ops)
+
+
+def clock_check():
+    """A span around a device sleep, and the kineto interval of that
+    kernel: (kernel start - span start, span end - kernel end) in ms."""
+    import torch
+
+    from jda_tpu_torch import tracing
+
+    def sleep():
+        with tracing.span("sleep"):
+            torch.cuda._sleep(20_000_000)
+            torch.cuda.synchronize()
+
+    torch.cuda._sleep(1000)  # warm
+    _, ops, _, _, spans, _ = profiled(sleep)
+    sp = next(s for s in spans if s.name == "sleep")
+    (k,) = ops  # the sleep's spin kernel
+    return (k[0] - sp.start) / 1e6, (sp.end - k[1]) / 1e6
+
+
+def path_cells():
     import jda_tpu_torch as jt
     from jda_tpu_torch.cascador import CppDetector
 
@@ -164,8 +141,7 @@ def main():
         T=5, K=540, landmark_n=27, seed=7, multi_scale=True,
         drop_profile=jt.realistic_drop_profile(5, 540),
     ))
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    flag = jt.load_model(os.path.join(root, "models", "flagship_synth.model"))
+    flag = jt.load_model(os.path.join(ROOT, "models", "flagship_synth.model"))
     cpp1 = CppDetector(flag, jt.Config(fddb_detect_method=1))
     cpp0 = CppDetector(flag, jt.Config(fddb_detect_method=0))
     cpp_ms = CppDetector(ms_det.params, jt.Config(fddb_detect_method=0))
@@ -177,24 +153,32 @@ def main():
             return lambda: [d.detect(g, **KW) for g in imgs]
         return lambda: d.detect_batch(imgs, **KW)
 
-    cells = (
-        ("VGA B=16", det, c_api(det, 480, 640, 16, 3, False), "fused"),
-        ("1080p B=4", det, c_api(det, 1080, 1920, 4, 31, False), "fused"),
-        ("non-fused VGA, 1 image", det, c_api(det, 480, 640, 1, 3, True), "unfused"),
-        ("non-fused 1080p, 1 frame", det, c_api(det, 1080, 1920, 1, 31, True), "unfused"),
+    return (
+        ("VGA B=16", det, c_api(det, 480, 640, 16, 3, False), False),
+        ("1080p B=4", det, c_api(det, 1080, 1920, 4, 31, False), False),
+        ("non-fused VGA, 1 image", det, c_api(det, 480, 640, 1, 3, True), True),
+        ("non-fused 1080p, 1 frame", det, c_api(det, 1080, 1920, 1, 31, True), True),
         ("non-fused multi-scale VGA, 1 image", ms_det,
-         c_api(ms_det, 480, 640, 1, 3, True), "unfused"),
+         c_api(ms_det, 480, 640, 1, 3, True), True),
         ("C++ method 1, detect_batch VGA B=8", cpp1.det,
-         lambda: cpp1.detect_batch(scenes), "cpp"),
+         lambda: cpp1.detect_batch(scenes), False),
         ("C++ method 1, detect, 1 VGA image", cpp1.det,
-         lambda: cpp1.detect(scenes[0]), "cpp"),
+         lambda: cpp1.detect(scenes[0]), False),
         ("C++ method 0, detect, 1 VGA image", cpp0.det,
-         lambda: cpp0.detect(scenes[0]), "cpp"),
+         lambda: cpp0.detect(scenes[0]), False),
         ("C++ multi-scale method 0, detect, 1 VGA image", cpp_ms.det,
-         lambda: cpp_ms.detect(scenes[0]), "cpp"),
+         lambda: cpp_ms.detect(scenes[0]), False),
     )
-    for label, d, run, kind in cells:
-        os.environ["JDA_TPU_FUSED"] = "0" if kind == "unfused" else "1"
+
+
+def paths_part():
+    import torch
+
+    from benchmark import spans as S
+
+    out = {}
+    for label, d, run, unfused in path_cells():
+        os.environ["JDA_TPU_FUSED"] = "0" if unfused else "1"
         d.last_stats = {}
         run()  # warm
         torch.cuda.synchronize()
@@ -202,21 +186,188 @@ def main():
         run()
         torch.cuda.synchronize()
         plain = time.perf_counter() - t0
-        total, acc = phase_times(run, kind)
-        wall, busy, kernels, dense = device_busy(run)
-        print(f"{label}: {plain * 1e3:.1f} ms unsynchronised, "
-              f"{total * 1e3:.1f} ms with per-phase syncs; counts "
-              f"{d.last_stats.get('counts', 'n/a')}")
-        for k, v in acc.items():
-            print(f"  {k:36s} {v * 1e3:9.1f} ms  {100 * v / total:5.1f} %")
-        print(f"  {'other (host glue, copies)':36s} {(total - sum(acc.values())) * 1e3:9.1f} ms")
+        dt, spans, counters = traced(run)
+        selfs = S.self_ns(spans)
+        _, ops, w0, w1, pspans, pcounters = profiled(run)
+        sums = S.SpanSums()
+        sums.add(pspans, pcounters, ops, w0, w1)
+        wall = (w1 - w0) / 1e9
+        busy = busy_s(ops)
+        dense = (pcounters.get("dense0_filter.launches", 0)
+                 + pcounters.get("dense0_image.launches", 0))
+        print(f"{label}: {plain * 1e3:.1f} ms unsynchronised, {dt * 1e3:.1f} ms traced; "
+              f"counts {d.last_stats.get('counts', 'n/a')}; counters {dict(counters)}")
+        for name, ns in sorted(selfs.items(), key=lambda kv: -kv[1])[:TOP]:
+            print(f"  {name:14s} self {ns / 1e6:9.2f} ms  {100 * ns / 1e9 / dt:5.1f} %")
         print(f"  profiler: wall {wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms "
-              f"({kernels} kernels, {dense} of them the stage-0 filter's), "
-              f"idle share {1 - busy / wall:.3f}")
-    print(subprocess.run(
+              f"({kernels(ops)} kernels, {dense} of them the stage-0 filters'), idle "
+              f"share {1 - busy / wall:.3f}, {100 * sums.idle_in_spans():.1f} % of the idle "
+              f"time inside a span; idle by span: "
+              + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in
+                          sorted(sums.idle_s.items(), key=lambda kv: -kv[1])[:TOP]))
+        out[label] = dict(plain_ms=plain * 1e3, traced_ms=dt * 1e3,
+                          self_ms={k: v / 1e6 for k, v in selfs.items()},
+                          counters=counters, wall_ms=wall * 1e3, busy_ms=busy * 1e3,
+                          kernels=kernels(ops), idle_in_spans=sums.idle_in_spans(),
+                          idle_ms={k: v * 1e3 for k, v in sums.idle_s.items()})
+    os.environ.pop("JDA_TPU_FUSED", None)
+    return out
+
+
+def cost_part():
+    """Bench's VGA stream with tracing off and on, in turns (off first in
+    odd pairs, on first in even ones)."""
+    import torch
+
+    import jda_tpu_torch as jt
+    from jda_tpu_torch import tracing
+
+    det = jt.Detector(jt.synthetic_model(
+        T=5, K=540, landmark_n=27, seed=7,
+        drop_profile=jt.realistic_drop_profile(5, 540),
+    ))
+    imgs = [make_image(480, 640, seed=i) for i in range(64)]
+
+    def run(on):
+        if on:
+            tracing.start()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        det.detect_stream(imgs, batch=16, **KW)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        tracing.stop()
+        spans = len(tracing.drain()[0])
+        return dt, spans
+
+    run(False)
+    run(True)  # warm
+    kern = {on: kernels(profiled(lambda: det.detect_batch(imgs[:16], **KW), on)[1])
+            for on in (False, True)}
+    secs = {False: [], True: []}
+    n_spans = 0
+    for i in range(RUNS):
+        for on in ((False, True) if i % 2 == 0 else (True, False)):
+            dt, n = run(on)
+            secs[on].append(dt)
+            n_spans = max(n_spans, n)
+    off, on = statistics.median(secs[False]), statistics.median(secs[True])
+    q = {k: statistics.quantiles(v, n=4) for k, v in secs.items()}
+    res = dict(kernels_off=kern[False], kernels_on=kern[True],
+               off_s=secs[False], on_s=secs[True], off_median=off, on_median=on,
+               on_cost=on / off - 1, spans_per_run=n_spans,
+               off_spread=(q[False][2] - q[False][0]) / off,
+               on_spread=(q[True][2] - q[True][0]) / on)
+    print(f"tracing cost, VGA stream of 64 images at B=16, {RUNS} runs each in turns "
+          f"(kernels of one B=16 call: off {kern[False]}, on {kern[True]}): "
+          f"off {off:.4f} s (spread {res['off_spread']:.3f}), on {on:.4f} s (spread "
+          f"{res['on_spread']:.3f}), {100 * res['on_cost']:+.2f} %, {n_spans} spans a run; "
+          f"off {['%.4f' % v for v in secs[False]]}, on {['%.4f' % v for v in secs[True]]}")
+    return res
+
+
+def cells_part(names):
+    import torch
+
+    from benchmark import harness as H
+    from benchmark import spans as S
+
+    spec = H.load_spec()
+    out = {}
+    for name in names:
+        c = H.resolve(spec, name)
+        config, traffic = c["config"], c["traffic"]
+        fields = H.model_fields(config)
+        pool = H.make_pool(traffic, SEED)
+        calls = H.batches(traffic)
+        program = H.Program(config, traffic, fields, "cuda")
+        for idx in calls[:2]:  # warm-up, as the benchmark's
+            program.call(list(pool[idx]))
+        sums = S.SpanSums()
+        window = busy = 0.0
+        n_kernels = images = 0
+        served = []
+        for i in range(CALLS):
+            idx = calls[i % len(calls)]
+            imgs = list(pool[idx])
+            _, ops, w0, w1, spans, counters = profiled(lambda: program.call(imgs))
+            sums.add(spans, counters, ops, w0, w1)
+            window += (w1 - w0) / 1e9
+            busy += busy_s(ops)
+            n_kernels += kernels(ops)
+            images += len(idx)
+            served.append(idx)
+        del program
+        torch.cuda.empty_cache()
+        _, per, _ = H.reference(config, traffic, fields, pool, "cuda")
+        tail_visits = sum(per[j]["visits"] - per[j]["visits0"] for idx in served for j in idx)
+        idle = sums.idle_total_s
+        r = dict(
+            seed=SEED, calls=CALLS, images=images, window_s=window, busy_s=busy,
+            idle_share=idle / window, idle_in_spans=sums.idle_in_spans(),
+            idle_in_call_self=sums.idle_s.get("call", 0.0) / idle if idle else 0.0,
+            kernels_per_image=n_kernels / images, kernels_per_call=n_kernels / CALLS,
+            tail_host_ms_per_image=sums.self_ms(S.TAIL_SPANS) / images,
+            tail_host_ms_per_call=sums.self_ms(S.TAIL_SPANS) / CALLS,
+            api_host_ms_per_image=sums.self_ms(S.API_SPANS) / images,
+            api_host_ms_per_call=sums.self_ms(S.API_SPANS) / CALLS,
+            tail_lane_use=S.tail_lane_use(tail_visits, sums.counters.get("tail.lane_carts", 0)),
+            tail_visits=tail_visits, lane_carts=sums.counters.get("tail.lane_carts", 0),
+            self_ms_per_call={k: 1e3 * v / CALLS for k, v in sums.self_s.items()},
+            idle_s=dict(sorted(sums.idle_s.items(), key=lambda kv: -kv[1])),
+            counters=dict(sums.counters),
+        )
+        print(f"{name} (seed {SEED}, {CALLS} profiled calls): " + json.dumps(
+            {k: v for k, v in r.items() if not isinstance(v, dict)}))
+        print("  idle by span (s): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in list(r["idle_s"].items())[:10]))
+        print("  self ms per call: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in sorted(r["self_ms_per_call"].items(),
+                                                key=lambda kv: -kv[1])))
+        out[name] = r
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("parts", nargs="*", choices=("paths", "cost", "cells"),
+                    help="parts to run (default all)")
+    ap.add_argument("--cells", default="", help="cells of BENCHMARK.json (default all)")
+    ap.add_argument("--out", help="a JSON file for every reading")
+    args = ap.parse_args(argv)
+    parts = args.parts or ["paths", "cost", "cells"]
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_torch_detect: no CUDA device", file=sys.stderr)
+        return 2
+    torch.set_num_threads(1)  # as the benchmark runs the program
+    result = {}
+    first, last = clock_check()
+    result["clock_ms"] = dict(kernel_start_after_span_start=first,
+                              span_end_after_kernel_end=last)
+    print(f"clock: a span around a 20 M-cycle device sleep opens {first:.4f} ms before "
+          f"the kernel starts and closes {last:.4f} ms after it ends")
+    if "paths" in parts:
+        result["paths"] = paths_part()
+    if "cost" in parts:
+        result["cost"] = cost_part()
+    if "cells" in parts:
+        from benchmark import harness as H
+
+        names = args.cells.split(",") if args.cells else [
+            w["name"] for w in H.load_spec()["workloads"]]
+        result["cells"] = cells_part(names)
+    card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True,
-    ).stdout.strip())
+    ).stdout.strip()
+    result["card"] = card
+    result["torch"] = torch.__version__
+    print(card, torch.__version__)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
     return 0
 
 

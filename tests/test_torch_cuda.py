@@ -18,6 +18,7 @@ import pytest
 import torch
 
 import jda_tpu_torch as jt
+from jda_tpu_torch import tracing
 from jda_tpu_torch.detect import enumerate_windows
 from jda_tpu_torch.ops import _build
 from jda_tpu_torch.ops import dense0 as D0
@@ -31,6 +32,12 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+def _launches(counters):
+    """(dense0_filter, dense0_image) launches in a tracing counter dict."""
+    return (counters.get("dense0_filter.launches", 0),
+            counters.get("dense0_image.launches", 0))
 
 
 def _img(h, w, seed):
@@ -71,11 +78,11 @@ def test_kernel_matches_plain(cuda, cpu_det, win, emit_lbf):
     img = torch.from_numpy(np.stack([_img(H, W, s) for s in range(3)])).to(cuda)
     tabi, tabf = _tables(cpu_det, win, step, cuda)
     kw = dict(step=step, ny=ny, nx=nx, depth=4, emit_lbf=emit_lbf)
-    before = D0.scale_filter.launches
-    got = D0.scale_filter(img, tabi, tabf, **kw)
+    with tracing.counting() as c:
+        got = D0.scale_filter(img, tabi, tabf, **kw)
     want = D0.scale_filter_reference(img, tabi, tabf, **kw)
     torch.cuda.synchronize()
-    assert D0.scale_filter.launches == before + 2  # head and survivor kernel
+    assert _launches(c) == (2, 0)  # head and survivor kernel
     alive = want[1]
     assert 0 < int(alive.sum()) < alive.numel(), "degenerate fixture"
     for a, b in zip(got[:3], want[:3]):
@@ -120,10 +127,10 @@ def test_image_kernel_matches_plain_and_batch_kernel(cuda, cpu_det):
     n, scales, tabs = _ladder(cpu_det, H, W, cuda)
     assert len(scales) >= 8
     img = torch.from_numpy(_img(H, W, 5)).to(cuda)
-    before = D0.stage0_filter_image.launches
-    got = D0.stage0_filter_image(img, tabs, meta=scales, depth=4)
+    with tracing.counting() as c:
+        got = D0.stage0_filter_image(img, tabs, meta=scales, depth=4)
     torch.cuda.synchronize()
-    assert D0.stage0_filter_image.launches == before + 2
+    assert _launches(c) == (0, 2)
     want = D0.stage0_filter_image_reference(img, tabs, meta=scales, depth=4)
     per_scale = D0.stage0_filter_all_scales(img[None], tabs, meta=scales, depth=4)
     assert 0 < int(want[1].sum()) < n, "degenerate fixture"
@@ -166,20 +173,21 @@ def test_ladder_kernel_matches_plain(cuda, emit_lbf, head_carts):
     n, scales, tabs = _ladder(det, H, W, cuda)
     img = torch.from_numpy(np.stack([_img(H, W, 7), _img(H, W, 8)])).to(cuda)
     prepared = D0.prepare_image(tabs, meta=scales, depth=4, H=H, W=W)
-    before = D0.scale_filter.launches
-    if head_carts == D0.HEAD_CARTS:
-        got = D0.stage0_filter_all_scales(
-            img, tabs, meta=scales, depth=4, emit_lbf=emit_lbf, prepared=prepared
-        )
-    else:
-        got = (torch.empty((2, n), dtype=torch.float32, device=cuda),
-               torch.empty((2, n), dtype=torch.bool, device=cuda),
-               torch.empty((2, n), dtype=torch.int32, device=cuda))
-        if emit_lbf:
-            got += (torch.empty((2, n, D0.lbf_words(70)), dtype=torch.int32, device=cuda),)
-        D0.launch(img, prepared, got, head_carts=head_carts)
+    with tracing.counting() as c:
+        if head_carts == D0.HEAD_CARTS:
+            got = D0.stage0_filter_all_scales(
+                img, tabs, meta=scales, depth=4, emit_lbf=emit_lbf, prepared=prepared
+            )
+        else:
+            got = (torch.empty((2, n), dtype=torch.float32, device=cuda),
+                   torch.empty((2, n), dtype=torch.bool, device=cuda),
+                   torch.empty((2, n), dtype=torch.int32, device=cuda))
+            if emit_lbf:
+                got += (torch.empty((2, n, D0.lbf_words(70)), dtype=torch.int32,
+                                    device=cuda),)
+            D0.launch(img, prepared, got, head_carts=head_carts)
     torch.cuda.synchronize()
-    assert D0.scale_filter.launches == before + 2
+    assert _launches(c) == (2, 0)
     want = D0.stage0_filter_all_scales(
         img.cpu(), [(a.cpu(), b.cpu()) for a, b in tabs], meta=scales, depth=4,
         emit_lbf=True,
@@ -275,12 +283,13 @@ def test_image_kernel_phases_apart(cuda, cpu_det):
     want = D0.stage0_filter_image(img, tabs, meta=scales, depth=4, prepared=t)
     for C in (1, 8, 32):
         out = tuple(torch.empty_like(w) for w in want)
-        before = D0.stage0_filter_image.launches
-        scr = D0.launch_image(img, t, out, head_carts=C, phases=D0.PHASE_HEAD)
-        assert int(out[2].max()) == min(C, cpu_det.K)
-        D0.launch_image(img, t, out, head_carts=C, phases=D0.PHASE_SURVIVORS, scratch=scr)
+        with tracing.counting() as c:
+            scr = D0.launch_image(img, t, out, head_carts=C, phases=D0.PHASE_HEAD)
+            assert int(out[2].max()) == min(C, cpu_det.K)
+            D0.launch_image(img, t, out, head_carts=C, phases=D0.PHASE_SURVIVORS,
+                            scratch=scr)
         torch.cuda.synchronize()
-        assert D0.stage0_filter_image.launches == before + 2
+        assert _launches(c) == (0, 2)
         queued = int(scr[1][0])  # nothing queues once the head walks all K carts
         assert queued <= n and (queued > 0) == (C < cpu_det.K)
         assert all(torch.equal(a, b) for a, b in zip(out, want))
@@ -311,9 +320,9 @@ def test_unfused_detector_on_card_matches_cpu(cuda, cpu_det, monkeypatch, roundi
     cdet = jt.Detector(cpu_det.params, rounding=rounding, device="cpu")
     fused = gdet.detect_batch(grays, th=-5.0)
     monkeypatch.setenv("JDA_TPU_FUSED", "0")
-    before = D0.stage0_filter_image.launches
-    got = gdet.detect_batch(grays, th=-5.0)
-    assert D0.stage0_filter_image.launches == before + 2 * len(grays)
+    with tracing.counting() as c:
+        got = gdet.detect_batch(grays, th=-5.0)
+    assert _launches(c) == (0, 2 * len(grays))
     want = cdet.detect_batch(grays, th=-5.0)
     assert sum(r.n for r in want) > 0, "degenerate fixture"
     for a, b, c in zip(want, got, fused):
@@ -382,11 +391,11 @@ def test_kernels_on_cpp_tables_match_plain(cuda, cpp_model):
         want = [torch.cat([w[i].reshape(img.shape[0], -1, *w[i].shape[3:]) for w in want],
                           dim=1) for i in range(4)]
         for emit_lbf in (False, True):
-            before = D0.scale_filter.launches
-            got = D0.stage0_filter_all_scales(img, plan["tabs"], meta=plan["scales"],
-                                              depth=4, emit_lbf=emit_lbf)
+            with tracing.counting() as c:
+                got = D0.stage0_filter_all_scales(img, plan["tabs"], meta=plan["scales"],
+                                                  depth=4, emit_lbf=emit_lbf)
             torch.cuda.synchronize()
-            assert D0.scale_filter.launches == before + 2
+            assert _launches(c) == (2, 0)
             for a, b in zip(got[:3], want[:3]):
                 assert torch.equal(a, b)
             if emit_lbf:
@@ -409,13 +418,13 @@ def test_cpp_detector_on_card_matches_cpu(cuda, cpp_model, method):
     cfg = jt.Config(fddb_detect_method=method, **CPP_CFG)
     gdet, cdet = CppDetector(cpp_model, cfg), CppDetector(cpp_model, cfg, device="cpu")
     grays = [_img(120, 160, 23), _img(96, 128, 24)]
-    before = (D0.scale_filter.launches, D0.stage0_filter_image.launches)
-    got = [gdet.detect(g) for g in grays]
+    with tracing.counting() as c:
+        got = [gdet.detect(g) for g in grays]
     torch.cuda.synchronize()
-    after = (D0.scale_filter.launches, D0.stage0_filter_image.launches)
-    assert (after[0] - before[0], after[1] - before[1]) == ((0, 4) if method else (4, 0))
-    batch = gdet.detect_batch(grays)
-    assert D0.scale_filter.launches == after[0] + 2
+    assert _launches(c) == ((0, 4) if method else (4, 0))
+    with tracing.counting() as c:
+        batch = gdet.detect_batch(grays)
+    assert _launches(c) == (2, 0)
     want = [cdet.detect(g) for g in grays]
     assert sum(len(w[0]) for w in want) > 0, "degenerate fixture"
     for a, b, c in zip(want, got, batch):
@@ -652,10 +661,10 @@ def test_canvas_tail_on_card_matches_cpu(cuda, cpu_det, monkeypatch):
     assert sum(r.n for r in want) > 0, "degenerate fixture"
     for canvas in ("rows", "gather"):
         monkeypatch.setenv("JDA_TPU_CANVAS", canvas)
-        before = D0.scale_filter.launches
-        got = gdet.detect_batch(grays, th=-5.0, min_size=110)
+        with tracing.counting() as c:
+            got = gdet.detect_batch(grays, th=-5.0, min_size=110)
         torch.cuda.synchronize()
-        assert D0.scale_filter.launches == before + 2
+        assert _launches(c) == (2, 0)
         for a, c in zip(want, got):
             np.testing.assert_array_equal(a.bboxes, c.bboxes)
             np.testing.assert_array_equal(a.scores, c.scores)

@@ -166,6 +166,16 @@ Phases, each fatal on failure:
      scripts/bench_1080p_torch.run over 4 frames at B=2: its keys, 20
      launches.
 
+ 25. (run after phase 3) the survivor tail kernel (`tail_walk`, csrc/tail.cu) at
+     the benchmark cells' shapes: detect_stream of 16 VGA textures (bench
+     model), CppDetector.detect_batch method 1 of 8 VGA scenes (flagship
+     model, rounding) and detect of one 1080p frame: every field of
+     run_fused bit-equal to the plain tail on the card, one launch a call;
+     the kernel's time (profiler) beside its bound (the regressions' weight
+     rows from L2), a call's wall time and kernels with the kernel and
+     with the plain tail.  `python3 chip_smoke.py 25` runs phases 1 and 25
+     alone.
+
 The last lines are the card (nvidia-smi name and power limit), a
 {"kernels": [...]} JSON line, and {"ok": true, "device": {...}}.  Without a
 CUDA device it exits non-zero and prints no result.
@@ -1864,7 +1874,153 @@ def bench_phase(card, model, vga):
     return launches
 
 
-def main() -> int:
+L2_BYTES_PER_S = 5.5e12  # H100 SXM L2 bandwidth: the survivor tail kernel's bound
+
+
+def device_kernels(fn):
+    """fn() under the device profiler: its result and the device's kernels
+    as (name, seconds), copies and memsets left out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    ops = [(ev.name, ev.device_time_total / 1e6) for ev in prof.events()
+           if ev.device_type == torch.autograd.DeviceType.CUDA
+           and not ev.name.startswith(("Memcpy", "Memset"))]
+    return out, ops
+
+
+def wall_ms(fn, reps):
+    """Median wall time of fn() in ms, the device synchronised around each."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def tail_regressions(counts, alive_final, T, split):
+    """Lane-stages of one gather pass that end in an exact regression: every
+    stage-0 survivor, then the lanes alive after each later stage (its
+    stage-end compaction point; the final lanes still alive after the last)."""
+    per = 2 if split else 1
+    return counts[0] + sum(counts[per * t] for t in range(1, T - 1)) + alive_final
+
+
+def tail_phase(card):
+    """Phase 25: the survivor tail kernel (`tail_walk`, ops/tail.py) at the
+    benchmark cells' shapes, against the plain tail on the card.  Returns
+    the kernel table's row."""
+    import unittest.mock as mock
+
+    import torch
+
+    import jda_tpu_torch as jt
+    from jda_tpu_torch import tracing
+    from jda_tpu_torch.cascador import CppDetector
+    from jda_tpu_torch.ops import fused as F
+    from jda_tpu_torch.ops import tail as TK
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    bench = jt.synthetic_model(T=5, K=540, landmark_n=27, seed=7,
+                               drop_profile=jt.realistic_drop_profile(5, 540))
+    flag = jt.load_model(os.path.join(root, "models", "flagship_synth.model"))
+    cells = (
+        ("vga_stream_b16", jt.Detector(bench),
+         lambda d, g: d.detect_stream(g, batch=16, **BENCH_KW),
+         [make_image(480, 640, seed=500 + i) for i in range(16)]),
+        ("fddb_scenes_m1_b8", CppDetector(flag, jt.Config(fddb_detect_method=1)),
+         lambda d, g: d.detect_batch(g),
+         [make_scene(480, 640, seed=600 + i)[0] for i in range(8)]),
+        ("hd_single_b1", jt.Detector(bench), lambda d, g: [d.detect(g[0], **BENCH_KW)],
+         [make_image(1080, 1920, seed=700)]),
+    )
+    real_run, real_walk = F.run_fused, TK.walk
+    row = {"name": "tail_walk", "route": "cuda", "source": "jda_tpu_torch/csrc/tail.cu",
+           "replaces": None, "library_ms": None, "cells": {}}
+    for name, det, call, imgs in cells:
+        raws, walks = {True: [], False: []}, []
+
+        def recorder(kernel):
+            def run(*a, **kw):
+                out = real_run(*a, **kw)
+                raws[kernel].append({k: v.cpu() for k, v in out.items()})
+                return out
+            return run
+
+        def walk(*a, **kw):
+            walks.append((a, kw))
+            return real_walk(*a, **kw)
+
+        plain = mock.patch.object(F, "takes_tail_kernel", lambda *a: False)
+        call(det, imgs)  # warm: plans, tables, the library
+        with mock.patch.object(F, "run_fused", recorder(True)), \
+                mock.patch.object(TK, "walk", walk):
+            with tracing.counting() as c:
+                got = call(det, imgs)
+            torch.cuda.synchronize()
+        with plain, mock.patch.object(F, "run_fused", recorder(False)):
+            want = call(det, imgs)
+        (rk,), (rp,) = raws[True], raws[False]
+        for k in ("sel", "score", "shape", "alive", "nvis", "counts", "nvis_img", "total_nvis"):
+            if not torch.equal(rk[k], rp[k]):
+                raise AssertionError(f"[25] {name}: the kernel's {k} differs from the plain tail")
+        for a, b in zip(want, got):
+            if isinstance(a, tuple):
+                same_cpp(a, b, f"[25] {name}")
+            else:
+                same_result(a, b, f"[25] {name}: results differ")
+        if c.get("tail_kernel.launches") != 1 or len(walks) != 1:
+            raise AssertionError(f"[25] {name}: {c.get('tail_kernel.launches')} tail launches")
+        kernel_ms = wall_ms(lambda: call(det, imgs), 7)
+        with plain:
+            plain_ms = wall_ms(lambda: call(det, imgs), 3)
+        _, ops_k = device_kernels(lambda: call(det, imgs))
+        with plain:
+            _, ops_p = device_kernels(lambda: call(det, imgs))
+        # the recorded launch again, alone (it adds to a visit bank no one reads)
+        a, kw = walks[0]
+        _, ops_w = device_kernels(lambda: [real_walk(*a, **kw) for _ in range(10)])
+        walk_ops = [d for n_, d in ops_k if "walk_kernel" in n_]
+        replay = [d for n_, d in ops_w if "walk_kernel" in n_]
+        tail_names = {n_ for n_, _ in ops_k + ops_w if "walk_kernel" in n_}
+        if len(walk_ops) != 1 or len(replay) != 10 or any(
+                k in n_ for n_ in tail_names for k in ("head_kernel", "survivor_kernel")):
+            raise AssertionError(f"[25] {name}: tail kernels {tail_names}, in the call "
+                                 f"{len(walk_ops)} of {len(ops_k)} device kernels, replays "
+                                 f"{len(replay)} of {len(ops_w)}")
+        tab = det.det._tail if hasattr(det, "det") else det._tail
+        split = F.STAGE_SPLIT if tab.K > 2 * F.STAGE_SPLIT else 0
+        counts = rk["counts"].tolist()
+        regs = tail_regressions(counts, int(rk["alive"].sum()), tab.T, split)
+        bound_ms = 1e3 * regs * tab.K * tab.L2 * 4 / L2_BYTES_PER_S
+        cell = dict(
+            kernel_ms=1e3 * statistics.median(replay), kernel_ms_in_call=1e3 * walk_ops[0],
+            bound_ms=bound_ms, regressions=regs, lanes=counts[0], counts=counts,
+            call_ms=kernel_ms, plain_call_ms=plain_ms, launches=len(ops_k),
+            plain_launches=len(ops_p), images=len(imgs),
+        )
+        row["cells"][name] = cell
+        log(f"[25] {name}: tail_walk {cell['kernel_ms']:.4f} ms (in the call "
+            f"{cell['kernel_ms_in_call']:.4f}), bound {bound_ms:.4f} ms ({regs} lane-stage "
+            f"regressions of {counts[0]} lanes, L2 bytes at {L2_BYTES_PER_S:.3g} B/s); a call "
+            f"{kernel_ms:.2f} ms with the kernel, {plain_ms:.2f} ms with the plain tail; "
+            f"kernels a call {len(ops_k)} against {len(ops_p)}; counts {counts}; every field "
+            f"of run_fused bit-equal to the plain tail on the card ({card})")
+    log(f"[25] done in {time.perf_counter() - t_phase:.1f} s")
+    return row
+
+
+def main(argv=None) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -1889,12 +2045,18 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    _build.build_all(["dense0", "dense0_image"])
-    log(f"[1] built dense0 and dense0_image in {time.perf_counter() - t0:.1f} s")
+    _build.build_all(["dense0", "dense0_image", "tail"])
+    log(f"[1] built dense0, dense0_image and tail in {time.perf_counter() - t0:.1f} s")
     for name, text in _build.build_logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"  nvcc {name}: {line.strip()}")
+    if argv and list(argv) == ["25"]:  # the survivor tail kernel's phase alone
+        row = tail_phase(card)
+        log(card)
+        log(json.dumps({"kernels": [row]}))
+        log(json.dumps({"ok": True, "phases": [1, 25]}))
+        return 0
 
     model = jt.synthetic_model(
         T=5, K=540, landmark_n=27, seed=7,
@@ -1992,6 +2154,11 @@ def main() -> int:
         if not (np.array_equal(a.bboxes, b.bboxes) and np.array_equal(a.scores, b.scores)
                 and np.array_equal(a.shapes, b.shapes)):
             raise AssertionError("detect_stream differs from detect_batch")
+
+    # -- 25. the survivor tail kernel against the plain tail ------------------------
+    # (here, before the later phases: after phases 22-24 the profiler recorded no
+    # device events in this process)
+    tail_row = tail_phase(card)
 
     # -- 4. against the native C library ------------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -2362,7 +2529,7 @@ def main() -> int:
         "plain_ms_cpp_m1_image": cpp["m1_image"]["plain_ms"],
         "bound_ms_cpp_m1_image": cpp["m1_image"]["bound"][0],
         "bound_by_cpp_m1_image": cpp["m1_image"]["bound"][1],
-    }], "cpp_img_s": cpp["rates"]}))
+    }, tail_row], "cpp_img_s": cpp["rates"]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
@@ -2372,4 +2539,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

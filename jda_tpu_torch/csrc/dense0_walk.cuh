@@ -69,6 +69,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "score_step.cuh"
+
 namespace dense0 {
 
 constexpr int kThreads = 256;  // per block, both phases; also the most scales
@@ -111,10 +113,7 @@ __device__ __forceinline__ int descend(const uint8_t* __restrict__ p,
   return node - node_n;
 }
 
-// (s + b - mean) / std, each op IEEE round-to-nearest, no contraction
-__device__ __forceinline__ float score_step(float s, float b, float mean, float sd) {
-  return __fdiv_rn(__fsub_rn(__fadd_rn(s, b), mean), sd);
-}
+using jda::score_step;
 
 __global__ void __launch_bounds__(kThreads) head_kernel(const Walk a) {
   extern __shared__ int4 sm_nodes[];  // [C, node_n], then the float rows [C, nf]

@@ -48,6 +48,7 @@ from jda_tpu_torch.ops import dense0 as D0
 from jda_tpu_torch.ops import fused as F
 from jda_tpu_torch.ops import nms as NMS
 from jda_tpu_torch.ops import resize as R
+from jda_tpu_torch.ops import tail as TK
 from jda_tpu_torch.utils import block, dp_mesh, log, resolve_device, same_device
 
 
@@ -228,6 +229,7 @@ class Detector:
             self._ms32 = params.mean_shape.astype(np.float32)
         self._tab_cache: Dict[tuple, Dict[str, np.ndarray]] = {}
         self._plans: Dict[tuple, dict] = {}
+        self._tail: Optional[TK.TailTables] = None
         self._pinned: Optional[torch.Tensor] = None
         self._upload_done: Optional[torch.cuda.Event] = None
         self.last_stats: dict = {}
@@ -386,6 +388,16 @@ class Detector:
             )
         return plan["image"]
 
+    def _tail_tables(self) -> Optional[TK.TailTables]:
+        """The survivor tail kernel's tables (ops/tail.pack_tables), built at
+        the first fused call of a CUDA detector and kept.  None on the CPU,
+        where the plain tail reads the model's tensors alone."""
+        if self.device.type != "cuda":
+            return None
+        if self._tail is None:
+            self._tail = TK.pack_tables(self.dev, self.depth)
+        return self._tail
+
     def _run(self, plan, grays, B, dims=None) -> Dict[str, torch.Tensor]:
         """One fused pass of a plan over a batch: `grays` placed top-left in
         its [B, Hc, Wc] planes; `dims`, where given, replaces each image's
@@ -410,6 +422,7 @@ class Detector:
             prepared=self._dense_tables(plan),
             origins=plan["origins"],
             groups=self._groups(plan),
+            tail=self._tail_tables(),
         )
 
     # -- non-fused path: one image, host ladder, compaction between stages ---

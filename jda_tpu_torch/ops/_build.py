@@ -9,8 +9,10 @@ a shared library, loaded with ctypes:
 The library name carries a hash of its source and of every header
 (`csrc/*.cuh`) beside it, so an edited source or header builds anew and a
 stale library is never loaded.  Builds happen at first use,
-never at import.  `build_all` starts one nvcc per source, all at once.
-The loaded libraries are the package's only module-level state.
+never at import.  `build_all` starts one nvcc per source, all at once;
+the sources the fused path loads at its first call (`BUILT_TOGETHER`) are
+built together at the first load of either.  The loaded libraries are the
+package's only module-level state.
 """
 
 from __future__ import annotations
@@ -30,6 +32,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# the dense stage-0 filter and the survivor tail, both loaded by a fused call
+BUILT_TOGETHER = ("dense0", "tail")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 build_logs: Dict[str, str] = {}
@@ -100,9 +105,11 @@ def build_all(names: Iterable[str]) -> Dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, built first if needed."""
+    """The loaded library of csrc/<name>.cu, built first if needed (with
+    the rest of BUILT_TOGETHER where it belongs there)."""
     lib = _libs.get(name)
     if lib is None:
-        lib = ctypes.CDLL(build_all([name])[name])
+        together = BUILT_TOGETHER if name in BUILT_TOGETHER else (name,)
+        lib = ctypes.CDLL(build_all(together)[name])
         _libs[name] = lib
     return lib

@@ -18,6 +18,11 @@ GATHER_MIN) through the gather tail; both compact after each stage only.
 Banded canvases (the C++ path's method-0 pyramids) give each scan grid a
 canvas origin.
 
+On a CUDA device the gather group's steps 3 and 4 (T >= 2) are one launch
+of the survivor tail kernel (ops/tail.py), which counts the survivors at
+the same compaction points and leaves the same lanes; everywhere else they
+run the plain PyTorch tail of ops/cascade.py.
+
 Compaction has dynamic sizes (torch.nonzero), so `counts` are the true
 survivor counts and there are no lane budgets to overflow.  Every
 per-window float sequence (score chain, exact sequential regression) is
@@ -37,6 +42,7 @@ from jda_tpu_torch import tracing
 from jda_tpu_torch.ops import cascade as C
 from jda_tpu_torch.ops import dense0 as D0
 from jda_tpu_torch.ops import mxu_tail as MT
+from jda_tpu_torch.ops import tail as TK
 
 Tensor = torch.Tensor
 
@@ -53,6 +59,13 @@ def compact(alive: Tensor) -> Tuple[Tensor, int]:
     with tracing.span("compact"):
         sel = torch.nonzero(alive).reshape(-1)
         return sel, int(sel.shape[0])
+
+
+def takes_tail_kernel(S: Optional[int], T: int, device: torch.device) -> bool:
+    """Whether a group's stages run as the survivor tail kernel
+    (ops/tail.py): the gather group (S None) of a model with T >= 2 on a
+    CUDA device.  Every other group takes the plain tail."""
+    return S is None and T >= 2 and device.type == "cuda"
 
 
 def unpack_lbf(words: Tensor, K: int) -> Tensor:
@@ -111,10 +124,13 @@ def run_fused(
     prepared: Optional[D0.ImageTables] = None,
     origins: Optional[Sequence[Tuple[int, int]]] = None,
     groups: Optional[Sequence[dict]] = None,
+    tail: Optional[TK.TailTables] = None,
 ) -> Dict[str, Tensor]:
     """Run the cascade over one batch.  `prepared` takes the dense filter's
     tables of this geometry (D0.prepare_image), which the caller keeps with
-    its plan.
+    its plan; `tail` the survivor tail kernel's tables of this model
+    (TK.pack_tables), which the caller keeps (built here where the kernel
+    runs without them).
 
     `groups` (group_scales) runs make_fused_fn2's grouped pass; None runs
     make_fused_fn's single gather pass.
@@ -167,8 +183,9 @@ def run_fused(
     split = groups is None and K > 2 * STAGE_SPLIT
     if groups is None:
         groups = ({"S": None, "w0": 0, "w1": n},)
+    split_at = STAGE_SPLIT if split else 0
     # compaction points of a group after its stage-0 one
-    n_points = (T - 1) * split + max(T - 2, 0)
+    n_points = TK.n_points(T, split_at)
     counts = []
     outs = []
 
@@ -199,6 +216,23 @@ def run_fused(
         b_idx = sel // ng
         w_idx = w0 + sel % ng
         sel_global = b_idx * n + w_idx
+        if count0 and takes_tail_kernel(S, T, imgs.device):
+            # -- 3-4. the gather group's tail in one kernel launch -------------
+            if tail is None:
+                tail = TK.pack_tables(dev, depth)
+            state, cnt = TK.walk(
+                tail, imgs, xywin, sel_global, score_d, nvis_d,
+                dense[3] if s0_lbf else None, nvis_img,
+                rounding=rounding, split=split_at,
+            )
+            reach = state.pop("reach")
+            if n_points:  # the lanes resident after the last compaction point
+                keep, _ = compact(reach == n_points)
+                counts.extend(cnt[1:].tolist())
+                state = {k: v[keep] for k, v in state.items()}
+                sel_global = sel_global[keep]
+            outs.append((sel_global, state))
+            continue
         wx, wy, ws = xywin[w_idx, 0], xywin[w_idx, 1], xywin[w_idx, 2]
         if S is None:
             state = C.init_state(

@@ -28,7 +28,9 @@ Spans of the detection path (name: where):
     upload      images to the device;  upload.wait: the wait for the
                 previous copy to have read the pinned buffer
     dense0      the dense stage-0 filter's host checks and launches
-    stage (t)   one stage of the fused pass, its compactions included
+    tail        the survivor tail kernel's host checks and launch (B; one
+                per gather group on a CUDA device, ops/tail.py)
+    stage (t)   one stage of the plain tail, its compactions included
     compact     survivor compaction (waits in torch.nonzero for the device)
     descend     tree descent of a cart chunk
     score_chain the sequential score and rejection chain of a cart chunk
@@ -37,9 +39,15 @@ Spans of the detection path (name: where):
                 device-to-host read, which waits for the tail to finish
     nms         non-maximum suppression (with the C++ route's relocation)
 
+Where the tail kernel runs, `stage`, `descend`, `score_chain` and
+`regression` do not open for its group: they are the plain tail's (the
+CPU, the canvas groups, the non-fused path, training).
+
 Counters: `plan.builds` (plans built on a cache miss), `tail.lane_carts`
-(lanes x carts the tree descent computed), `dense0_filter.launches` and
-`dense0_image.launches` (kernels launched by the two stage-0 filters).
+(lanes x carts the plain tail's descent computed), `tail_kernel.launches`
+and `tail_kernel.lanes` (the tail kernel's launches and the lanes queued
+to it), `dense0_filter.launches` and `dense0_image.launches` (kernels
+launched by the two stage-0 filters).
 """
 
 from __future__ import annotations

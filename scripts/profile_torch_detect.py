@@ -30,9 +30,10 @@ beside a device-only profile, on the one clock both use.  Three parts
          calls each profiled in a cycle of its own as the benchmark's
          traced run does, with the program's spans: idle share, the share
          of idle time inside a span and inside `call`'s own time, idle by
-         span, host ms of the survivor tail and of the detector API per
-         image and per call, and the tail's lane use against the
-         reference's cart visits.
+         span, host ms of the survivor tail (the plain tail's spans and
+         the kernel's `tail`) and of the detector API per image and per
+         call, the tail's lane use against the reference's cart visits
+         (plain tail) and the tail kernel's launches and lanes a call.
 
 Ends with the card's name and power limit; --out writes every reading to
 FILE as JSON.
@@ -55,6 +56,8 @@ KW = dict(scale=1.25, min_size=24, max_size=-1, th=-0.5)
 TOP = 8  # spans and idle labels printed per path
 RUNS = 7  # runs each way of the cost part
 SEED = 4011  # the cells part's pool and batches
+# the survivor tail's spans: the plain tail's, and the kernel wrapper's
+TAIL = ("stage", "descend", "score_chain", "regression", "tail")
 CALLS = 12  # profiled calls per cell
 
 
@@ -307,12 +310,14 @@ def cells_part(names):
             idle_share=idle / window, idle_in_spans=sums.idle_in_spans(),
             idle_in_call_self=sums.idle_s.get("call", 0.0) / idle if idle else 0.0,
             kernels_per_image=n_kernels / images, kernels_per_call=n_kernels / CALLS,
-            tail_host_ms_per_image=sums.self_ms(S.TAIL_SPANS) / images,
-            tail_host_ms_per_call=sums.self_ms(S.TAIL_SPANS) / CALLS,
+            tail_host_ms_per_image=sums.self_ms(TAIL) / images,
+            tail_host_ms_per_call=sums.self_ms(TAIL) / CALLS,
             api_host_ms_per_image=sums.self_ms(S.API_SPANS) / images,
             api_host_ms_per_call=sums.self_ms(S.API_SPANS) / CALLS,
             tail_lane_use=S.tail_lane_use(tail_visits, sums.counters.get("tail.lane_carts", 0)),
             tail_visits=tail_visits, lane_carts=sums.counters.get("tail.lane_carts", 0),
+            tail_kernel_launches_per_call=sums.counters.get("tail_kernel.launches", 0) / CALLS,
+            tail_kernel_lanes_per_call=sums.counters.get("tail_kernel.lanes", 0) / CALLS,
             self_ms_per_call={k: 1e3 * v / CALLS for k, v in sums.self_s.items()},
             idle_s=dict(sorted(sums.idle_s.items(), key=lambda kv: -kv[1])),
             counters=dict(sums.counters),

@@ -6,9 +6,10 @@ run where the port runs:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-Everything here is bit-exact: the kernel's float ops are IEEE
-round-to-nearest in the plain version's order, and the survivor tail runs
-the same PyTorch ops on both devices.
+Everything here is bit-exact: the kernels' float ops are IEEE
+round-to-nearest in the plain versions' order.  On the card the fused
+pass's gather tail is the `tail_walk` kernel; its other groups and the
+non-fused path run the same PyTorch ops on both devices.
 """
 
 import os
@@ -686,3 +687,193 @@ def test_cpp_canvas_buckets_on_card_match_cpu(cuda, cpp_model, monkeypatch):
         assert sum(len(w[0]) for w in want) > 0, "degenerate fixture"
         for a, b in zip(want, gdet.detect_batch(grays)):
             _same_cpp(a, b)
+
+
+# -- the survivor tail kernel (ops/tail.py, csrc/tail.cu) -------------------------
+
+RAW_FIELDS = ("sel", "score", "shape", "alive", "nvis", "counts", "nvis_img", "total_nvis")
+
+
+@pytest.fixture
+def raw(monkeypatch):
+    """Every run_fused output of the block, on the host, in call order."""
+    from jda_tpu_torch.ops import fused as F
+
+    calls = []
+    real = F.run_fused
+
+    def recorded(*a, **kw):
+        out = real(*a, **kw)
+        calls.append({k: v.cpu() for k, v in out.items()})
+        return out
+
+    monkeypatch.setattr(F, "run_fused", recorded)
+    return calls
+
+
+def _tail_on_card(raw, on_cpu, on_card, gather_groups, canvas=False):
+    """on_cpu() and on_card() through run_fused: every output field of every
+    call bit-equal; the card launches the tail kernel once per gather group
+    with survivors and, without canvas groups, opens no `score_chain` span.
+    Returns the outputs."""
+    on_cpu()
+    want = list(raw)
+    raw.clear()
+    tracing.start()
+    try:
+        on_card()
+        torch.cuda.synchronize()
+    finally:
+        tracing.stop()
+    spans, counters = tracing.drain()
+    assert len(raw) == len(want) > 0
+    for w, g in zip(want, raw):
+        for k in RAW_FIELDS:
+            assert torch.equal(w[k], g[k]), k
+    launches = sum(min(int(w["counts"][i]), 1) for w in want for i in gather_groups(w))
+    assert counters.get("tail_kernel.launches", 0) == launches
+    assert counters.get("tail_kernel.lanes", 0) == sum(
+        int(w["counts"][i]) for w in want for i in gather_groups(w))
+    names = {s.name for s in spans}
+    if not canvas:
+        assert "score_chain" not in names and "tail.lane_carts" not in counters
+    assert ("tail" in names) == (launches > 0)
+    return want
+
+
+def _first(w):
+    return [0]  # the single gather pass: its stage-0 count comes first
+
+
+def test_tail_kernel_bench_model_split_truncation(cuda, raw):
+    """bench.py's geometry (T=5, K=540, 27 landmarks; the split's compaction
+    after 64 carts of each stage) on the C-API ladder, truncating."""
+    m = jt.synthetic_model(T=5, K=540, landmark_n=27, seed=7,
+                           drop_profile=jt.realistic_drop_profile(5, 540))
+    cdet, gdet = jt.Detector(m, device="cpu"), jt.Detector(m)
+    grays = [_img(240, 320, 41), _img(200, 300, 42)]
+    want = _tail_on_card(raw, lambda: cdet.detect_batch(grays, th=-5.0),
+                         lambda: gdet.detect_batch(grays, th=-5.0), _first)
+    assert len(want[0]["counts"]) == 1 + 4 + 3 and int(want[0]["counts"][-1]) > 0
+
+
+@pytest.mark.parametrize("method", [1, 0], ids=["m1", "m0-banded"])
+def test_tail_kernel_flagship_rounding(cuda, raw, method):
+    """The trained flagship cascade through CppDetector.detect_batch on
+    scenes with planted faces (rounding; method 0's banded canvases give
+    each scan grid an origin), faces carried through every stage."""
+    import sys
+
+    from jda_tpu_torch.cascador import CppDetector
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from chip_smoke import make_scene
+
+    m = jt.load_model(os.path.join(os.path.dirname(__file__), "..", "models",
+                                   "flagship_synth.model"))
+    cfg = jt.Config(fddb_detect_method=method)
+    cdet, gdet = CppDetector(m, cfg, device="cpu"), CppDetector(m, cfg)
+    grays = [make_scene(240, 320, 61 + i, faces=1)[0] for i in range(2)]
+    want = _tail_on_card(raw, lambda: cdet.detect_batch(grays),
+                         lambda: gdet.detect_batch(grays), _first)
+    assert int(want[0]["counts"][-1]) > 0, "degenerate fixture"
+
+
+@pytest.mark.parametrize("s0_lbf", [True, False], ids=["lbf", "descend0"])
+def test_tail_kernel_no_split(cuda, s0_lbf):
+    """K=20 (no split's compaction), stage 0 from the leaf words or
+    descended: run_fused on the card equal to the CPU in every field."""
+    from jda_tpu_torch.ops import fused as F
+
+    m = jt.synthetic_model(T=3, K=20, landmark_n=9, seed=4, reject_rate=0.2)
+    imgs = np.stack([_img(64, 96, 1), _img(64, 96, 2)])
+    imgs[1, 56:, 80:] = 0
+    dims = np.array([[96, 64], [80, 56]], np.int32)
+    outs = []
+    for dev in ("cpu", "cuda"):
+        det = jt.Detector(m, device=dev)
+        p = det._plan(64, 96, 1.25, 24, 64)
+        with tracing.counting() as c:
+            out = F.run_fused(det.dev, torch.from_numpy(imgs).to(dev),
+                              torch.from_numpy(dims).to(dev), p["tabs"], p["xywin"],
+                              meta=p["scales"], depth=4, leaf_n=m.leaf_n, T=m.T, H=64,
+                              W=96, s0_lbf=s0_lbf)
+        outs.append(({k: v.cpu() for k, v in out.items()}, c))
+    (want, _), (got, c) = outs
+    assert len(p["scales"]) > 1 and int(want["counts"][-1]) > 0
+    assert c.get("tail_kernel.launches") == 1
+    for k in RAW_FIELDS:
+        assert torch.equal(want[k], got[k]), k
+
+
+def test_tail_kernel_when_every_lane_dies_in_stage_one(cuda, raw):
+    """Every lane rejected at stage 1: zeros at every later compaction
+    point, no final lane, the same per-image visits."""
+    import dataclasses
+
+    m = jt.synthetic_model(T=4, K=140, landmark_n=9, seed=4, reject_rate=0.05)
+    cart_th = m.cart_th.copy()
+    cart_th[1] = 1e30
+    m = dataclasses.replace(m, cart_th=cart_th)
+    cdet, gdet = jt.Detector(m, device="cpu"), jt.Detector(m)
+    grays = [_img(96, 128, 3), _img(80, 112, 4)]
+    want = _tail_on_card(raw, lambda: cdet.detect_batch(grays, th=-5.0),
+                         lambda: gdet.detect_batch(grays, th=-5.0), _first)
+    counts = want[0]["counts"].tolist()
+    assert counts[0] > 0 and counts[1:] == [0] * 5 and want[0]["sel"].numel() == 0
+
+
+def test_tail_kernel_gather_group_of_grouped_pass(cuda, cpu_det, raw, monkeypatch):
+    """JDA_TPU_TAIL=mxu: the canvas groups take the plain tail on the card,
+    the gather group (win >= 257, no split) the kernel."""
+    monkeypatch.setenv("JDA_TPU_TAIL", "mxu")
+    gdet = jt.Detector(cpu_det.params)
+    grays = [_img(300, 320, 1), _img(280, 300, 2)]
+    T = cpu_det.T
+    want = _tail_on_card(raw, lambda: cpu_det.detect_batch(grays, th=-5.0, min_size=110),
+                         lambda: gdet.detect_batch(grays, th=-5.0, min_size=110),
+                         lambda w: [2 * (T - 1)],  # groups 128, 256, then the gather group
+                         canvas=True)
+    assert len(want[0]["counts"]) == 3 * (T - 1) and int(want[0]["counts"][4]) > 0
+
+
+def test_tail_wrapper_rejects_bad_inputs(cuda, cpu_det):
+    from jda_tpu_torch.ops import tail as TK
+
+    tabs = TK.pack_tables(jt.Detector(cpu_det.params).dev, 4)
+    B, n = 2, 10
+    imgs = torch.zeros((B, 40, 40), dtype=torch.uint8, device=cuda)
+    xywin = torch.zeros((n, 3), dtype=torch.int32, device=cuda)
+    args = dict(
+        xywin=xywin, sel=torch.zeros(3, dtype=torch.int64, device=cuda),
+        score0=torch.zeros((B, n), device=cuda),
+        nvis0=torch.zeros((B, n), dtype=torch.int32, device=cuda), lbf=None,
+        nvis_img=torch.zeros(B, dtype=torch.int32, device=cuda),
+    )
+    kw = dict(rounding=False, split=0)
+    with pytest.raises(ValueError, match="uint8"):
+        TK.walk(tabs, imgs.float(), **args, **kw)
+    with pytest.raises(ValueError, match="sel"):
+        TK.walk(tabs, imgs, **dict(args, sel=args["sel"].int()), **kw)
+    with pytest.raises(ValueError, match="device"):
+        TK.walk(tabs, imgs, **dict(args, xywin=xywin.cpu()), **kw)
+    with pytest.raises(ValueError, match="lbf"):
+        TK.walk(tabs, imgs, **dict(args, lbf=torch.zeros((B, n, 1), dtype=torch.int32,
+                                                          device=cuda)), **kw)
+    with pytest.raises(ValueError, match="split"):
+        TK.walk(tabs, imgs, **args, rounding=False, split=16)
+
+
+def test_tail_wrapper_raises_when_build_missing(cuda, cpu_det, monkeypatch):
+    from jda_tpu_torch.ops import tail as TK
+
+    tabs = TK.pack_tables(jt.Detector(cpu_det.params).dev, 4)
+    monkeypatch.setattr(_build, "CSRC", "/nonexistent-csrc")
+    monkeypatch.setattr(_build, "_libs", {})
+    imgs = torch.zeros((1, 40, 40), dtype=torch.uint8, device=cuda)
+    with pytest.raises(RuntimeError, match="kernel source missing"):
+        TK.walk(tabs, imgs, torch.zeros((4, 3), dtype=torch.int32, device=cuda),
+                torch.zeros(1, dtype=torch.int64, device=cuda),
+                torch.zeros((1, 4), device=cuda),
+                torch.zeros((1, 4), dtype=torch.int32, device=cuda), None,
+                torch.zeros(1, dtype=torch.int32, device=cuda), rounding=False, split=0)

@@ -12,7 +12,7 @@ import jda_tpu_torch as jt
 from jda_tpu_torch import tracing
 from jda_tpu_torch.ops.fused import STAGE_SPLIT
 
-NAMES = {"call", "plan", "upload", "upload.wait", "dense0", "stage", "compact",
+NAMES = {"call", "plan", "upload", "upload.wait", "dense0", "tail", "stage", "compact",
          "descend", "score_chain", "regression", "harvest", "harvest.wait", "nms"}
 
 

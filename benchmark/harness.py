@@ -11,14 +11,46 @@ or a metric sits in files of its own, found by the names in BENCHMARK.json:
     run's readings (`Readings`) and returns a number, or None where it finds
     nothing to read.
 
+A configuration file states its sizes (`T`, `K`, `landmark_n`,
+`tree_depth`), its `entry` (`c_api` with a `detect` block, or `cpp` with an
+`fddb` block) and three keys that let a new configuration bring its own
+code as new files, each a path from the checkout's root:
+
+  * `model`: where the cascade's arrays come from.  `{"kind": "synthetic",
+    "seed", "cart_th_file"}` is frozen.synthetic_model; `{"kind": "file",
+    "path", "sha256"}` a model file in the reference's format, refused
+    unless its sha256 is the one stated; `{"kind": "module", "path", ...}` a
+    module whose `fields(config, root)` returns the arrays (frozen.FIELDS
+    plus `T`, `K`, `landmark_n`, `tree_depth`) and reads the block's other
+    keys (a seed, say) itself.  The arrays of a file or a module must hold
+    exactly those fields, at the configuration's sizes;
+  * `reference` (optional): a module that decides `correct` in place of
+    benchmark/reference.py.  It exports `answers(config, traffic, fields,
+    pool, device, dtype=None)`, returning (answers, one per pool image as
+    `Program.call` returns them; per, a dict per pool image with at least
+    `windows` and `visits`; the window ladder), and may export
+    `counted_ops(per_image, config)`, the operations an image needs, which
+    the traced run sums for `Readings.traced_ops`.  The dense filter's
+    bound (`Readings.dense0_bound_s`) is summed only where `per` carries
+    `visits0` and `alive0`;
+  * `detector` (optional, `c_api` only): options of the program's
+    `Detector` that the reference follows too; `{"rounding": true}` rounds
+    feature coordinates half away from zero (the C++ semantics) on both
+    sides.  Absent, coordinates are truncated, as the C API does.
+
+`resolve` refuses a reference or model module whose imports (its own and
+those of the benchmark modules it imports, read with `ast`) name the
+program, JAX or the JAX package, and an unknown `detector` key.
+
 A run makes its inputs from the seed, builds the program's detector, warms
 up the cell's own shapes, drives the entry point in a closed loop for the
-window, then checks every answer it served against the reference
-(benchmark/reference.py) and prints one JSON line.
+window, then checks every answer it served against the reference and
+prints one JSON line.
 """
 
 from __future__ import annotations
 
+import ast
 import dataclasses
 import gc
 import importlib.util
@@ -37,6 +69,10 @@ from benchmark import yardstick as Y
 BENCH = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(BENCH)
 FORBIDDEN = ("jax", "jaxlib", "flax", "jda_tpu")
+# what a reference or model module may not import: JAX's, and the program
+REFEREE_FORBIDDEN = FORBIDDEN + ("jda_tpu_torch",)
+DETECTOR_OPTIONS = {"rounding": bool}  # the `detector` keys, with their types
+SIZES = ("T", "K", "landmark_n", "tree_depth")
 IMAGES_PER_SEED = 4096  # pool image i of seed s is drawn from s * 4096 + i
 
 
@@ -68,14 +104,87 @@ def resolve(spec: dict, workload: str, root: str = ROOT) -> dict:
     def applies(m):
         return "workloads" not in m or workload in m["workloads"]
 
+    config = _json(os.path.join(root, configs[cell["config"]]["file"]))
+    check_config(config, root)
     return dict(
         cell=cell,
-        config=_json(os.path.join(root, configs[cell["config"]]["file"])),
+        config=config,
         traffic=_json(os.path.join(BENCH, "traffic", cell["traffic"] + ".json")),
         limits=_json(os.path.join(BENCH, "limits", workload + ".json")),
         end_to_end=[m for m in spec["end_to_end"] if applies(m)],
         per_layer=[m for m in spec["per_layer"] if applies(m)],
     )
+
+
+def check_config(config: dict, root: str = ROOT) -> None:
+    """Refuse a configuration whose `detector` block has an unknown key, a
+    value of another type or another entry than `c_api`, or whose reference
+    or model module imports the program or JAX (`imported_names`)."""
+    opts = config.get("detector", {})
+    if opts and config["entry"] != "c_api":
+        raise ValueError(f"`detector` options are for the c_api entry, not {config['entry']!r}")
+    for k, v in opts.items():
+        if k not in DETECTOR_OPTIONS:
+            raise ValueError(f"unknown detector option {k!r}; known: {sorted(DETECTOR_OPTIONS)}")
+        if not isinstance(v, DETECTOR_OPTIONS[k]):
+            raise ValueError(f"detector option {k!r} takes a {DETECTOR_OPTIONS[k].__name__}")
+    paths = [config["reference"]] if "reference" in config else []
+    if config["model"]["kind"] == "module":
+        paths.append(config["model"]["path"])
+    for path in paths:
+        bad = imported_names(os.path.join(root, path)) & set(REFEREE_FORBIDDEN)
+        if bad:
+            raise ValueError(f"{path} imports {sorted(bad)}: a reference or model module "
+                             "may import neither the program nor JAX")
+
+
+def imported_names(path: str, _seen=None) -> set:
+    """Top-level names of the modules that the source at `path` imports,
+    anywhere in it (statements, `__import__("x")`, `import_module("x")`),
+    and those of the benchmark's own modules it imports, followed through."""
+    seen = set() if _seen is None else _seen
+    seen.add(os.path.abspath(path))
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    names, local = set(), []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            mods = [node.module] + [f"{node.module}.{a.name}" for a in node.names]
+        elif (isinstance(node, ast.Call) and node.args
+              and isinstance(node.args[0], ast.Constant) and isinstance(node.args[0].value, str)
+              and getattr(node.func, "id", getattr(node.func, "attr", None))
+              in ("__import__", "import_module")):
+            mods = [node.args[0].value]
+        else:
+            continue
+        for mod in mods:
+            parts = mod.split(".")
+            names.add(parts[0])
+            if parts[0] == "benchmark" and len(parts) > 1:
+                local.append(os.path.join(BENCH, *parts[1:]) + ".py")
+    for p in local:
+        if os.path.exists(p) and os.path.abspath(p) not in seen:
+            names |= imported_names(p, seen)
+    return names
+
+
+def _load(path: str, prefix: str):
+    """The module at `path`, executed afresh under a name of its own."""
+    name = prefix + os.path.splitext(os.path.basename(path))[0].replace(".", "_")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def reference_module(config: dict, root: str = ROOT):
+    """The module that decides `correct` for the configuration: its
+    `reference` file, or benchmark/reference.py."""
+    if "reference" not in config:
+        return R
+    return _load(os.path.join(root, config["reference"]), "benchmark_reference_")
 
 
 def metric_reader(name: str):
@@ -84,10 +193,7 @@ def metric_reader(name: str):
     path = os.path.join(BENCH, "metrics", name + ".py")
     if not os.path.exists(path):
         raise KeyError(f"no reader for metric {name!r} ({path})")
-    spec = importlib.util.spec_from_file_location("benchmark_metric_" + name.replace(".", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _load(path, "benchmark_metric_").read
 
 
 # ---------------------------------------------------------------------------
@@ -95,23 +201,29 @@ def metric_reader(name: str):
 # ---------------------------------------------------------------------------
 
 def model_fields(config: dict, root: str = ROOT) -> dict:
-    """The configuration's model arrays (frozen generator or model file)."""
+    """The configuration's model arrays (frozen generator, model file or
+    module)."""
     m = config["model"]
     if m["kind"] == "synthetic":
         th = np.load(os.path.join(root, m["cart_th_file"])) if m.get("cart_th_file") else None
         return F.synthetic_model(config["T"], config["K"], config["landmark_n"],
                                  config["tree_depth"], m["seed"], cart_th=th)
+    path = os.path.join(root, m["path"])
     if m["kind"] == "file":
-        path = os.path.join(root, m["path"])
         digest = F.sha256_file(path)
         if digest != m["sha256"]:
             raise ValueError(f"{m['path']}: sha256 {digest}, the configuration states {m['sha256']}")
         out = F.read_model(path)
-        for k in ("T", "K", "landmark_n", "tree_depth"):
-            if out[k] != config[k]:
-                raise ValueError(f"{m['path']}: {k} = {out[k]}, the configuration states {config[k]}")
-        return out
-    raise ValueError(f"unknown model kind {m['kind']!r}")
+    elif m["kind"] == "module":
+        out = _load(path, "benchmark_model_").fields(config, root)
+    else:
+        raise ValueError(f"unknown model kind {m['kind']!r}")
+    if set(out) != set(F.FIELDS) | set(SIZES):
+        raise ValueError(f"{m['path']}: fields {sorted(out)}, not {sorted(F.FIELDS + SIZES)}")
+    for k in SIZES:
+        if out[k] != config[k]:
+            raise ValueError(f"{m['path']}: {k} = {out[k]}, the configuration states {config[k]}")
+    return out
 
 
 def image_seed(seed: int, i: int) -> int:
@@ -145,17 +257,20 @@ class Program:
     """The system under test: the configuration's entry of jda_tpu_torch
     with the traffic's call.  `call(imgs)` returns the answers, one per
     image, as (boxes, scores, shapes, statistic or None); `visits()` the
-    program's own cart-visit counter of the last call, where it has one."""
+    program's own cart-visit counter of the last call, where it has one:
+    the C API's fused path, which serves single-scale models, keeps one;
+    its multi-scale path and the C++ route keep none."""
 
     def __init__(self, config: dict, traffic: dict, fields: dict, device):
         from jda_tpu_torch import params as P
 
         params = P.from_arrays(dict(fields, stage_idx=fields["T"] + 1, cart_idx=-1))
         self.entry, self.kind = config["entry"], traffic["call"]
+        self.counts_visits = self.entry == "c_api" and not np.any(np.asarray(fields["scale"]))
         if self.entry == "c_api":
             from jda_tpu_torch.detect import Detector
 
-            self.det = Detector(params, device=device)
+            self.det = Detector(params, device=device, **config.get("detector", {}))
             self.kw = dict(config["detect"])
         elif self.entry == "cpp":
             from jda_tpu_torch.cascador import CppDetector
@@ -188,30 +303,16 @@ class Program:
                                     r[3].cart_gothrough_n)) for r in res]
 
     def visits(self) -> Optional[int]:
-        if self.entry == "c_api":
+        if self.counts_visits:
             return int(self.det.last_stats["total_nvis"])
         return None
 
 
-def reference(config: dict, traffic: dict, fields: dict, pool: np.ndarray, device, dtype=None):
-    """The reference's answers and counts for every pool image."""
-    import torch
-
-    c = R.Cascade(fields, device, torch.float32 if dtype is None else dtype)
-    H, W = pool.shape[1:]
-    if config["entry"] == "c_api":
-        k = config["detect"]
-        ladder = R.c_api_ladder(H, W, k["scale"], k["min_size"], k["max_size"])
-        per, xyw = R.run_cascade(c, pool, ladder, rounding=False)
-        answers = [a + (None,) for a in R.c_api_answers(per, xyw, k["th"], k["nms_overlap"])]
-    else:
-        f = config["fddb"]
-        if f["method"] != 1:
-            raise ValueError("the reference runs fddb method 1 only")
-        ladder = R.cpp_m1_ladder(H, W, f["minimum_size"], f["step"], f["scale"])
-        per, xyw = R.run_cascade(c, pool, ladder, rounding=True)
-        answers = R.cpp_answers(per, xyw, f["overlap"])
-    return answers, per, ladder
+def reference(config: dict, traffic: dict, fields: dict, pool: np.ndarray, device, dtype=None,
+              root: str = ROOT):
+    """The reference's answers, counts and ladder for every pool image
+    (`answers` of the configuration's reference module)."""
+    return reference_module(config, root).answers(config, traffic, fields, pool, device, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -267,8 +368,12 @@ class Readings:
     calls: int = 0
     latencies_s: List[float] = dataclasses.field(default_factory=list)
     trace: object = None  # trace.DeviceTrace of a traced run
-    dense0_bound_s: float = 0.0  # least time of the traced calls' dense filter
-    traced_ops: int = 0  # the cascade's counted operations of the traced calls
+    # least time of the traced calls' dense filter; None where the reference
+    # counts no stage-0 visits and survivors
+    dense0_bound_s: Optional[float] = None
+    # the cascade's counted operations of the traced calls; None where the
+    # reference module counts none
+    traced_ops: Optional[int] = None
 
 
 def run_cell(c: dict, seed: int, seconds: float, trace: bool, device, t_start: float,
@@ -343,7 +448,8 @@ def run_cell(c: dict, seed: int, seconds: float, trace: bool, device, t_start: f
         torch.cuda.empty_cache()
 
     t_ref = time.perf_counter()
-    want, per, ladder = reference(config, traffic, fields, pool, device)
+    ref = reference_module(config)
+    want, per, ladder = ref.answers(config, traffic, fields, pool, device)
     flat_served = [a for out in served for a in out]
     flat_want = [want[j] for idx in served_idx for j in idx]
     has_visits = visits[0] is not None
@@ -355,16 +461,19 @@ def run_cell(c: dict, seed: int, seconds: float, trace: bool, device, t_start: f
     log(f"reference and comparison: {time.perf_counter() - t_ref:.1f} s")
 
     if tracer is not None:
-        H, W = pool.shape[1:]
-        n = per[0]["windows"]
-        K, node_n, depth = config["K"], (1 << (config["tree_depth"] - 1)) - 1, config["tree_depth"]
-        L2 = 2 * config["landmark_n"]
-        for idx in served_idx:
-            r.traced_ops += sum(R.counted_ops(per[k], depth, K, L2) for k in idx)
-            r.dense0_bound_s += max(Y.ladder_bound(
-                len(idx), H, W, len(ladder), n, K, node_n,
-                sum(per[k]["visits0"] for k in idx), depth,
-                lbf_bytes=sum(per[k]["alive0"] for k in idx) * Y.lbf_words(K) * 4))
+        if hasattr(ref, "counted_ops"):
+            r.traced_ops = sum(ref.counted_ops(per[k], config) for idx in served_idx for k in idx)
+        if all("visits0" in p and "alive0" in p for p in per):
+            H, W = pool.shape[1:]
+            n = per[0]["windows"]
+            K, depth = config["K"], config["tree_depth"]
+            node_n = (1 << (depth - 1)) - 1
+            r.dense0_bound_s = 0.0
+            for idx in served_idx:
+                r.dense0_bound_s += max(Y.ladder_bound(
+                    len(idx), H, W, len(ladder), n, K, node_n,
+                    sum(per[k]["visits0"] for k in idx), depth,
+                    lbf_bytes=sum(per[k]["alive0"] for k in idx) * Y.lbf_words(K) * 4))
 
     entries = c["per_layer"] if trace else c["end_to_end"]
     metrics = {}

@@ -29,6 +29,10 @@ the mean shape, reads its feature offsets from per-scale tables.
 Besides the answers it counts the work: per image the windows, the cart
 visits of stage 0 and of the whole cascade, the windows alive after stage
 0 and the windows that finish each stage.
+
+It is the harness's default reference: `answers` and `counted_ops` are the
+interface that a configuration's own reference module (the configuration's
+`reference` key, benchmark/harness.py) exports in its place.
 """
 
 from __future__ import annotations
@@ -411,9 +415,36 @@ def cpp_answers(per, xyw, overlap=0.3):
     return out
 
 
-def counted_ops(p: dict, depth: int, K: int, L2: int) -> int:
+# ---------------------------------------------------------------------------
+# the interface the harness calls
+# ---------------------------------------------------------------------------
+
+def answers(config: dict, traffic: dict, fields: dict, pool: np.ndarray, device, dtype=None):
+    """The reference's answers and counts for every pool image of the
+    configuration's entry: (answers, one per image as the program's call
+    returns them; per, run_cascade's dict of each image; the ladder)."""
+    c = Cascade(fields, device, torch.float32 if dtype is None else dtype)
+    H, W = pool.shape[1:]
+    if config["entry"] == "c_api":
+        k = config["detect"]
+        ladder = c_api_ladder(H, W, k["scale"], k["min_size"], k["max_size"])
+        rounding = bool(config.get("detector", {}).get("rounding", False))
+        per, xyw = run_cascade(c, pool, ladder, rounding=rounding)
+        out = [a + (None,) for a in c_api_answers(per, xyw, k["th"], k["nms_overlap"])]
+    else:
+        f = config["fddb"]
+        if f["method"] != 1:
+            raise ValueError("the reference runs fddb method 1 only")
+        ladder = cpp_m1_ladder(H, W, f["minimum_size"], f["step"], f["scale"])
+        per, xyw = run_cascade(c, pool, ladder, rounding=True)
+        out = cpp_answers(per, xyw, f["overlap"])
+    return out, per, ladder
+
+
+def counted_ops(p: dict, config: dict) -> int:
     """Operations the cascade needs on one image: per cart visit (depth-1)
     node steps of subtract, compare and two index operations, then add,
     subtract, divide and compare in the score chain; per window finishing
     a stage, K additions of a 2L weight row."""
+    depth, K, L2 = config["tree_depth"], config["K"], 2 * config["landmark_n"]
     return p["visits"] * ((depth - 1) * 4 + 4) + sum(p["finish"]) * K * L2

@@ -12,7 +12,9 @@ import numpy as np
 import pytest
 import torch
 
+from benchmark import frozen as F
 from benchmark import harness as H
+from benchmark import reference as R
 
 SPEC = H.load_spec()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -90,14 +92,16 @@ def test_no_jax_is_loaded():
     assert not set(names) & {"jax", "jaxlib", "flax", "jda_tpu"}
 
 
-def tiny(workload):
-    c = H.resolve(SPEC, workload)
-    if c["config"]["model"]["kind"] == "synthetic":
+def tiny(workload, spec=SPEC):
+    c = H.resolve(spec, workload)
+    kind = c["config"]["model"]["kind"]
+    if kind == "synthetic":
         c["config"] = dict(c["config"], T=2, K=24, model=dict(kind="synthetic", seed=7))
+    if kind == "file":
+        c["traffic"] = dict(c["traffic"], height=200, width=240, pool=2, batch=2, faces=1)
+    else:
         c["traffic"] = dict(c["traffic"], height=96, width=128, pool=4,
                             batch=min(c["traffic"]["batch"], 2))
-    else:
-        c["traffic"] = dict(c["traffic"], height=200, width=240, pool=2, batch=2, faces=1)
     return c
 
 
@@ -211,3 +215,214 @@ def test_pool_is_the_seeds():
     assert np.array_equal(H.make_pool(t, 9), H.make_pool(t, 9))
     assert not np.array_equal(H.make_pool(t, 9), H.make_pool(t, 10))
     assert os.path.exists(os.path.join(H.BENCH, "run.py"))
+
+
+# ---------------------------------------------------------------------------
+# a configuration that brings its own model source, reference and options
+# ---------------------------------------------------------------------------
+
+MODEL_MODULE = """
+from benchmark import frozen as F
+
+
+def fields(config, root):
+    m = config["model"]
+    return F.synthetic_model(config["T"], config["K"], config["landmark_n"],
+                             config["tree_depth"], m["seed"]){change}
+"""
+
+REFERENCE_MODULE = """
+{imports}
+from benchmark import reference as R
+
+
+def answers(config, traffic, fields, pool, device, dtype=None):
+    out, per, ladder = R.answers(config, traffic, fields, pool, device, dtype)
+{plant}
+    return out, per, ladder
+"""
+
+# the first score of the first image with a box, raised by 0.01
+RAISED_SCORE = """    i = next(i for i, a in enumerate(out) if len(a[1]))
+    out[i][1][:1] += 0.01"""
+
+
+def spec_with(tmp_path, config, workload="vga_stream_b16"):
+    """SPEC with the cell `workload` (its traffic and limits) under
+    `config`, written to a file of its own in `tmp_path`."""
+    path = tmp_path / (config["name"] + ".json")
+    path.write_text(json.dumps(config))
+    cell = dict(next(w for w in SPEC["workloads"] if w["name"] == workload), config=config["name"])
+    return dict(SPEC, configs=[dict(SPEC["configs"][0], name=config["name"], file=str(path))],
+                workloads=[cell])
+
+
+def own_files(tmp_path, model_change="", imports="", plant="    pass"):
+    """A configuration at vga_stream_b16's sizes (shrunk) whose model
+    module and reference module are new files, named by absolute path."""
+    model = tmp_path / "own_model.py"
+    model.write_text(MODEL_MODULE.format(change=model_change))
+    ref = tmp_path / "own_reference.py"
+    ref.write_text(REFERENCE_MODULE.format(imports=imports, plant=plant))
+    base = H.resolve(SPEC, "vga_stream_b16")["config"]
+    return dict(base, name="own_synth", T=2, K=24, reference=str(ref),
+                model=dict(kind="module", path=str(model), seed=11))
+
+
+@pytest.mark.parametrize("case, kw, want", [
+    ("sound", {}, True),
+    ("raised_score", dict(plant=RAISED_SCORE), False),
+    ("imports_program", dict(imports="from jda_tpu_torch.detect import Detector"), "refused"),
+    ("imports_jax_by_name", dict(imports="import importlib; importlib.import_module('jax')"),
+     "refused"),
+    ("imports_the_harness", dict(imports="from benchmark import harness"), "refused"),
+])
+def test_configuration_brings_its_own_files(case, kw, want, tmp_path):
+    """A cell whose configuration names its own reference and a `module`
+    model runs through run_cell with new files only; a fault planted in
+    that reference's answers makes `correct` false; a reference that
+    imports the program or JAX, itself or through a benchmark module, is
+    refused at resolve."""
+    spec = spec_with(tmp_path, own_files(tmp_path, **kw))
+    if want == "refused":
+        with pytest.raises(ValueError, match="imports"):
+            H.resolve(spec, "vga_stream_b16")
+        return
+    c = tiny("vga_stream_b16", spec)
+    fields = H.model_fields(c["config"])
+    assert np.array_equal(fields["W"], F.synthetic_model(2, 24, 27, 4, 11)["W"])
+    assert H.reference_module(c["config"]) is not R
+    line, nums = run(c)
+    assert line["correct"] is want, nums
+    assert line["attempted"] > 0 and (line["failed"] > 0) is (not want)
+
+
+@pytest.mark.parametrize("change, match", [
+    ("", None),
+    (" | dict(K=25)", "K = 25"),
+    (" | dict(extra=0)", "fields"),
+])
+def test_module_model_is_checked(change, match, tmp_path):
+    """A `module` model's arrays are held to the configuration's sizes and
+    to the model's set of fields, as a model file's are."""
+    config = own_files(tmp_path, model_change=change)
+    if match is None:
+        assert set(H.model_fields(config)) == set(F.FIELDS) | set(H.SIZES)
+    else:
+        with pytest.raises(ValueError, match=match):
+            H.model_fields(config)
+
+
+def parent_reference(config, traffic, fields, pool, device, dtype=None):
+    """harness.reference as it was before a configuration could name its
+    own reference (frozen copy): the default reference must give exactly
+    this."""
+    c = R.Cascade(fields, device, torch.float32 if dtype is None else dtype)
+    H_, W = pool.shape[1:]
+    if config["entry"] == "c_api":
+        k = config["detect"]
+        ladder = R.c_api_ladder(H_, W, k["scale"], k["min_size"], k["max_size"])
+        per, xyw = R.run_cascade(c, pool, ladder, rounding=False)
+        answers = [a + (None,) for a in R.c_api_answers(per, xyw, k["th"], k["nms_overlap"])]
+    else:
+        f = config["fddb"]
+        if f["method"] != 1:
+            raise ValueError("the reference runs fddb method 1 only")
+        ladder = R.cpp_m1_ladder(H_, W, f["minimum_size"], f["step"], f["scale"])
+        per, xyw = R.run_cascade(c, pool, ladder, rounding=True)
+        answers = R.cpp_answers(per, xyw, f["overlap"])
+    return answers, per, ladder
+
+
+def same(a, b) -> bool:
+    """Equal in every field, type and dtype included."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(same(x, y) for x, y in zip(a, b)))
+    if isinstance(a, np.ndarray):
+        return (isinstance(b, np.ndarray) and a.dtype == b.dtype and a.shape == b.shape
+                and np.array_equal(a, b))
+    return type(a) is type(b) and a == b
+
+
+@pytest.mark.parametrize("workload", ["vga_stream_b16", "fddb_scenes_m1_b8", "hd_single_b1"])
+def test_default_reference_is_the_parents(workload):
+    """The existing cells' answers, per-image counts and ladder through
+    reference.answers equal, field for field, the parent's harness.reference
+    on the same tiny pool."""
+    torch.set_num_threads(4)
+    c = tiny(workload)
+    config, traffic = c["config"], c["traffic"]
+    assert "reference" not in config and H.reference_module(config) is R
+    fields = H.model_fields(config)
+    pool = H.make_pool(traffic, 2**31 + 13)
+    got = H.reference(config, traffic, fields, pool, "cpu")
+    want = parent_reference(config, traffic, fields, pool, "cpu")
+    assert same(got, want)
+    assert sum(len(a[0]) for a in want[0]) > 0
+
+
+def program_ignores_rounding(monkeypatch):
+    """The program's Detector built without the configuration's rounding."""
+    from jda_tpu_torch.detect import Detector
+
+    init = Detector.__init__
+
+    def plain(self, *a, rounding=False, **kw):
+        init(self, *a, **kw)
+
+    monkeypatch.setattr(Detector, "__init__", plain)
+
+
+@pytest.mark.parametrize("fault, want", [(None, True), (program_ignores_rounding, False)])
+@pytest.mark.parametrize("workload", ["vga_stream_b16", "hd_single_b1"])
+def test_rounding_reaches_both_sides(workload, fault, want, monkeypatch):
+    """`"detector": {"rounding": true}` reaches the program's Detector and
+    the default reference: they agree, the answers differ from those of a
+    run without it on some pool image, and a program that drops the option
+    is not correct."""
+    c = tiny(workload)
+    config = dict(c["config"], detector={"rounding": True})
+    H.check_config(config)
+    c["config"] = config
+    fields = H.model_fields(config)
+    pool = H.make_pool(c["traffic"], 2**31 + 11)
+    rounded = H.reference(config, c["traffic"], fields, pool, "cpu")[0]
+    truncated = H.reference(dict(config, detector={}), c["traffic"], fields, pool, "cpu")[0]
+    assert not all(same(a, b) for a, b in zip(rounded, truncated))
+    if fault is not None:
+        fault(monkeypatch)
+    assert H.Program(config, c["traffic"], fields, "cpu").det.rounding is want
+    line, nums = run(c)
+    assert line["correct"] is want, nums
+
+
+@pytest.mark.parametrize("workload, detector", [
+    ("vga_stream_b16", {"round": True}),
+    ("vga_stream_b16", {"rounding": 1}),
+    ("fddb_scenes_m1_b8", {"rounding": True}),
+])
+def test_detector_options_are_checked(workload, detector, tmp_path):
+    """An unknown `detector` key, a value of another type, or options on
+    the C++ entry are refused at resolve."""
+    config = dict(H.resolve(SPEC, workload)["config"], detector=detector)
+    with pytest.raises(ValueError, match="detector"):
+        H.resolve(spec_with(tmp_path, config, workload), workload)
+
+
+@pytest.mark.parametrize("multi_scale", [False, True])
+def test_visits_where_the_program_counts_them(multi_scale):
+    """The C API's visit counter is read on single-scale models and not
+    asked of a multi-scale model, whose path keeps none."""
+    torch.set_num_threads(4)
+    c = tiny("hd_single_b1")
+    fields = F.synthetic_model(2, 24, 27, 4, 7)
+    if multi_scale:
+        rng = np.random.default_rng(0)
+        fields["scale"] = rng.integers(0, 3, fields["scale"].shape).astype(np.int32)
+    program = H.Program(c["config"], c["traffic"], fields, "cpu")
+    program.call([F.make_image(96, 128, 5)])
+    v = program.visits()
+    assert (v is None) if multi_scale else (isinstance(v, int) and v > 0)

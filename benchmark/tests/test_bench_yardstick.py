@@ -34,7 +34,8 @@ def test_quartile_spread():
 
 def test_counted_ops():
     p = dict(visits=1000, finish=[10, 5, 0])
-    assert R.counted_ops(p, depth=4, K=540, L2=54) == 1000 * 16 + 15 * 540 * 54
+    config = dict(tree_depth=4, K=540, landmark_n=27)
+    assert R.counted_ops(p, config) == 1000 * 16 + 15 * 540 * 54
 
 
 def readings(**trace):

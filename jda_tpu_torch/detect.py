@@ -556,13 +556,14 @@ class Detector:
         filter plus cascade_full on the survivors (single-scale models), or
         _run_batch (multi-scale and T == 0 models)."""
         img_h, img_w = gray.shape
-        if self.single_scale:
-            # single-scale models never read the half/quarter levels
-            levels = (gray, np.zeros((1, 1), np.uint8), np.zeros((1, 1), np.uint8))
-        else:
-            levels = R.pyramid_c(gray)
-        flat, offsets, strides = R.stack_pyramid(levels)
-        flat_dev = torch.from_numpy(flat).to(self.device)
+        with tracing.span("pyramid"):
+            if self.single_scale:
+                # single-scale models never read the half/quarter levels
+                levels = (gray, np.zeros((1, 1), np.uint8), np.zeros((1, 1), np.uint8))
+            else:
+                levels = R.pyramid_c(gray)
+            flat, offsets, strides = R.stack_pyramid(levels)
+            flat_dev = torch.from_numpy(flat).to(self.device)
 
         min_size = max(min_size, 24)
         if max_size <= 0:
@@ -614,7 +615,10 @@ class Detector:
             for s0 in range(0, n, batch):
                 s1 = min(s0 + batch, n)
                 geom = window_geometry(x[s0:s1], y[s0:s1], win[s0:s1], offsets, strides)
-                res = self._run_batch(flat_dev, geom, s1 - s0, rounding=self.rounding)
+                tracing.count("run_batch.calls", 1)
+                tracing.count("run_batch.windows", s1 - s0)
+                with tracing.span("run_batch"):
+                    res = self._run_batch(flat_dev, geom, s1 - s0, rounding=self.rounding)
                 scores[s0:s1] = res["score"]
                 alive[s0:s1] = res["alive"]
                 shapes[s0:s1] = res["shape"]

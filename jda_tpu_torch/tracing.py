@@ -38,6 +38,11 @@ Spans of the detection path (name: where):
     harvest     the host post-pass of a batch;  harvest.wait: its first
                 device-to-host read, which waits for the tail to finish
     nms         non-maximum suppression (with the C++ route's relocation)
+    pyramid     the non-fused path's o/h/q levels of one image (trivial
+                for a single-scale model), stacked and uploaded
+    run_batch   one geometry batch of the non-fused path's multi-scale
+                and T == 0 branch (`Detector._run_batch`); the plain
+                tail's spans open inside it
 
 Where the tail kernel runs, `stage`, `descend`, `score_chain` and
 `regression` do not open for its group: they are the plain tail's (the
@@ -47,7 +52,9 @@ Counters: `plan.builds` (plans built on a cache miss), `tail.lane_carts`
 (lanes x carts the plain tail's descent computed), `tail_kernel.launches`
 and `tail_kernel.lanes` (the tail kernel's launches and the lanes queued
 to it), `dense0_filter.launches` and `dense0_image.launches` (kernels
-launched by the two stage-0 filters).
+launched by the two stage-0 filters), `run_batch.calls` and
+`run_batch.windows` (the non-fused branch's `_run_batch` calls and the
+windows entering them).
 """
 
 from __future__ import annotations

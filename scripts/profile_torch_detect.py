@@ -2,7 +2,7 @@
 """Where the time goes in jda_tpu_torch's detection path, on one CUDA card.
 
     python3 scripts/profile_torch_detect.py [paths] [cost] [cells]
-        [--cells a,b] [--out FILE]
+        [--cells a,b] [--calls N] [--out FILE]
 
 Reads the program's own spans and counters (jda_tpu_torch/tracing.py)
 beside a device-only profile, on the one clock both use.  Three parts
@@ -26,14 +26,15 @@ beside a device-only profile, on the one clock both use.  Three parts
          runs each; and the kernels of one B=16 call with tracing off and
          on (tracing launches none).
   cells  The benchmark's cells (BENCHMARK.json, built by
-         benchmark/harness.py from SEED): two warm calls, then CALLS
-         calls each profiled in a cycle of its own as the benchmark's
-         traced run does, with the program's spans: idle share, the share
-         of idle time inside a span and inside `call`'s own time, idle by
-         span, host ms of the survivor tail (the plain tail's spans and
-         the kernel's `tail`) and of the detector API per image and per
-         call, the tail's lane use against the reference's cart visits
-         (plain tail) and the tail kernel's launches and lanes a call.
+         benchmark/harness.py from SEED): two warm calls, then N calls
+         (--calls, default CALLS) each profiled in a cycle of its own as
+         the benchmark's traced run does, with the program's spans: idle
+         share, the share of idle time inside a span and inside `call`'s
+         own time, idle by span, host ms of the survivor tail (the plain
+         tail's spans and the kernel's `tail`) and of the detector API
+         per image and per call, the tail's lane use against the
+         reference's cart visits (plain tail) and the tail kernel's
+         launches and lanes a call.
 
 Ends with the card's name and power limit; --out writes every reading to
 FILE as JSON.
@@ -269,7 +270,7 @@ def cost_part():
     return res
 
 
-def cells_part(names):
+def cells_part(names, calls=CALLS):
     import torch
 
     from benchmark import harness as H
@@ -282,16 +283,16 @@ def cells_part(names):
         config, traffic = c["config"], c["traffic"]
         fields = H.model_fields(config)
         pool = H.make_pool(traffic, SEED)
-        calls = H.batches(traffic)
+        batches = H.batches(traffic)
         program = H.Program(config, traffic, fields, "cuda")
-        for idx in calls[:2]:  # warm-up, as the benchmark's
+        for idx in batches[:2]:  # warm-up, as the benchmark's
             program.call(list(pool[idx]))
         sums = S.SpanSums()
         window = busy = 0.0
         n_kernels = images = 0
         served = []
-        for i in range(CALLS):
-            idx = calls[i % len(calls)]
+        for i in range(calls):
+            idx = batches[i % len(batches)]
             imgs = list(pool[idx])
             _, ops, w0, w1, spans, counters = profiled(lambda: program.call(imgs))
             sums.add(spans, counters, ops, w0, w1)
@@ -303,26 +304,29 @@ def cells_part(names):
         del program
         torch.cuda.empty_cache()
         _, per, _ = H.reference(config, traffic, fields, pool, "cuda")
-        tail_visits = sum(per[j]["visits"] - per[j]["visits0"] for idx in served for j in idx)
+        # the multi-scale reference counts no stage-0 visits apart: its
+        # path has no dense filter, so the plain tail descends every visit
+        tail_visits = sum(per[j]["visits"] - per[j].get("visits0", 0)
+                          for idx in served for j in idx)
         idle = sums.idle_total_s
         r = dict(
-            seed=SEED, calls=CALLS, images=images, window_s=window, busy_s=busy,
+            seed=SEED, calls=calls, images=images, window_s=window, busy_s=busy,
             idle_share=idle / window, idle_in_spans=sums.idle_in_spans(),
             idle_in_call_self=sums.idle_s.get("call", 0.0) / idle if idle else 0.0,
-            kernels_per_image=n_kernels / images, kernels_per_call=n_kernels / CALLS,
+            kernels_per_image=n_kernels / images, kernels_per_call=n_kernels / calls,
             tail_host_ms_per_image=sums.self_ms(TAIL) / images,
-            tail_host_ms_per_call=sums.self_ms(TAIL) / CALLS,
+            tail_host_ms_per_call=sums.self_ms(TAIL) / calls,
             api_host_ms_per_image=sums.self_ms(S.API_SPANS) / images,
-            api_host_ms_per_call=sums.self_ms(S.API_SPANS) / CALLS,
+            api_host_ms_per_call=sums.self_ms(S.API_SPANS) / calls,
             tail_lane_use=S.tail_lane_use(tail_visits, sums.counters.get("tail.lane_carts", 0)),
             tail_visits=tail_visits, lane_carts=sums.counters.get("tail.lane_carts", 0),
-            tail_kernel_launches_per_call=sums.counters.get("tail_kernel.launches", 0) / CALLS,
-            tail_kernel_lanes_per_call=sums.counters.get("tail_kernel.lanes", 0) / CALLS,
-            self_ms_per_call={k: 1e3 * v / CALLS for k, v in sums.self_s.items()},
+            tail_kernel_launches_per_call=sums.counters.get("tail_kernel.launches", 0) / calls,
+            tail_kernel_lanes_per_call=sums.counters.get("tail_kernel.lanes", 0) / calls,
+            self_ms_per_call={k: 1e3 * v / calls for k, v in sums.self_s.items()},
             idle_s=dict(sorted(sums.idle_s.items(), key=lambda kv: -kv[1])),
             counters=dict(sums.counters),
         )
-        print(f"{name} (seed {SEED}, {CALLS} profiled calls): " + json.dumps(
+        print(f"{name} (seed {SEED}, {calls} profiled calls): " + json.dumps(
             {k: v for k, v in r.items() if not isinstance(v, dict)}))
         print("  idle by span (s): " + ", ".join(
             f"{k} {v:.4f}" for k, v in list(r["idle_s"].items())[:10]))
@@ -338,6 +342,7 @@ def main(argv=None):
     ap.add_argument("parts", nargs="*", choices=("paths", "cost", "cells"),
                     help="parts to run (default all)")
     ap.add_argument("--cells", default="", help="cells of BENCHMARK.json (default all)")
+    ap.add_argument("--calls", type=int, default=CALLS, help="profiled calls per cell")
     ap.add_argument("--out", help="a JSON file for every reading")
     args = ap.parse_args(argv)
     parts = args.parts or ["paths", "cost", "cells"]
@@ -362,7 +367,7 @@ def main(argv=None):
 
         names = args.cells.split(",") if args.cells else [
             w["name"] for w in H.load_spec()["workloads"]]
-        result["cells"] = cells_part(names)
+        result["cells"] = cells_part(names, args.calls)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True,

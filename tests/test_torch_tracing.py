@@ -10,10 +10,12 @@ import torch
 
 import jda_tpu_torch as jt
 from jda_tpu_torch import tracing
+from jda_tpu_torch.detect import enumerate_windows
 from jda_tpu_torch.ops.fused import STAGE_SPLIT
 
 NAMES = {"call", "plan", "upload", "upload.wait", "dense0", "tail", "stage", "compact",
-         "descend", "score_chain", "regression", "harvest", "harvest.wait", "nms"}
+         "descend", "score_chain", "regression", "harvest", "harvest.wait", "nms", "pyramid",
+         "run_batch"}
 
 
 @pytest.fixture(autouse=True)
@@ -165,6 +167,35 @@ def test_cpp_detect_batch_spans():
     assert spans[names.index("harvest.wait")].parent == harvest
     assert [spans[i].parent for i, n in enumerate(names) if n == "nms"] == [harvest] * 2
     assert names.count("plan") == 1 and counters["plan.builds"] == 1
+
+
+def test_multi_scale_spans():
+    """A multi-scale model's non-fused branch: `pyramid` once per image and
+    `run_batch` once per geometry batch, both right under the call, the
+    plain tail's spans inside `run_batch`, and the counters give the
+    batches and the windows entering them.  Off, nothing is recorded."""
+    m = jt.synthetic_model(T=2, K=8, landmark_n=9, seed=3, multi_scale=True, reject_rate=0.3)
+    det = jt.Detector(m, device="cpu")
+    imgs = [make_image(60, 80, 5), make_image(60, 80, 6)]
+    off = det.detect_stream(imgs, batch=2, th=-5.0)
+    assert tracing.drain() == ([], {})
+    on, spans, counters = _recorded(lambda: det.detect_stream(imgs, batch=2, th=-5.0))
+    assert sum(r.n for r in off) > 0, "degenerate fixture"
+    for a, b in zip(off, on):
+        np.testing.assert_array_equal(a.bboxes, b.bboxes)
+        np.testing.assert_array_equal(a.scores, b.scores)
+    assert {s.name for s in spans} <= NAMES and spans[0].entry == "detect_stream"
+    n = len(enumerate_windows(80, 60, 1.25, 24, 60)[0])
+    # two images of one geometry batch each, then one image in three batches
+    three = _recorded(lambda: det.detect(imgs[0], th=-5.0, batch=n // 3 + 1))[1:]
+    for (spans, counters), images, calls in (((spans, counters), 2, 1), (three, 1, 3)):
+        names = [s.name for s in spans]
+        assert names.count("pyramid") == images and names.count("run_batch") == images * calls
+        assert all(s.parent == 0 for s in spans if s.name in ("pyramid", "run_batch"))
+        assert all(spans[s.parent].name == "run_batch" for s in spans
+                   if s.name in ("descend", "score_chain", "regression"))
+        assert counters["run_batch.calls"] == images * calls
+        assert counters["run_batch.windows"] == images * n
 
 
 def test_drain_refuses_open_spans_and_counting_restores_off():

@@ -33,8 +33,9 @@ Phases, each fatal on failure:
      fused results of phases 3 and 5, one `dense0_image` call (two kernels)
      per image;
   9. a multi-scale model of the same width through Detector.detect
-     (pyramid, prefilter and stage loop of _run_batch) on 2 VGA images:
-     the full ladder bit-equal to the port on the CPU, and against the
+     (pyramid, then the tail kernel's level walk of the whole ladder, one
+     launch an image) on 2 VGA images: the full ladder bit-equal to the
+     port on the CPU (`_run_batch`), and against the
      native C library with the window pinned to 24 px, where every read of
      the C library stays inside its pyramid: identical boxes, scores within
      2e-4, shapes within 2e-3;
@@ -2332,7 +2333,7 @@ def main(argv=None) -> int:
             f"dense0_filter {stray} times for {len(unfused_imgs)} images"
         )
 
-    # -- 9. a multi-scale model: pyramid, prefilter, stage loop ----------------------
+    # -- 9. a multi-scale model: pyramid, the tail kernel's level walk -------------
     ms_model = jt.synthetic_model(
         T=5, K=540, landmark_n=27, seed=7, multi_scale=True,
         drop_profile=jt.realistic_drop_profile(5, 540),
@@ -2355,9 +2356,13 @@ def main(argv=None) -> int:
         n_safe = 0
         for i in range(2):
             t0 = time.perf_counter()
-            r = ms_det.detect(vga[i], **BENCH_KW)
-            torch.cuda.synchronize()
+            with tracing.counting() as c:
+                r = ms_det.detect(vga[i], **BENCH_KW)
+                torch.cuda.synchronize()
             dt = time.perf_counter() - t0
+            if c.get("tail_kernel.launches") != 1 or "run_batch.calls" in c:
+                raise AssertionError(f"multi-scale detect: {c} (one tail kernel launch an "
+                                     "image expected, no _run_batch)")
             same_result(ms_cpu.detect(vga[i], **BENCH_KW), r,
                         f"multi-scale detect on the card differs from the CPU, image {i}")
             rp = ms_det.detect(vga[i], **pinned)

@@ -17,10 +17,13 @@ reference C API `jdaDetect` (c/jda.c:318-480):
 Two paths.  The fused path (ops/fused.py) serves single-scale models with
 T > 0, a batch of images per call.  The non-fused path serves one image
 per call: multi-scale models, T == 0 models, and any model when the
-environment variable JDA_TPU_FUSED is "0".  The C++-semantics detector
-(cascador.py) drives both through explicit window ladders
-(`Detector._plan_windows`) and `_run_batch`.  Entry points run on CUDA
-unless the caller passes device="cpu".
+environment variable JDA_TPU_FUSED is "0".  On a CUDA device a multi-scale
+model with T > 0 walks every window of the image's ladder through the
+survivor tail kernel's multi-scale instantiation (ops/tail.py), one launch
+an image; on the CPU, and for T == 0 models, `_run_batch` runs the plain
+tail.  The C++-semantics detector (cascador.py) drives both paths through
+explicit window ladders (`Detector._plan_windows`) and `_run_batch`.
+Entry points run on CUDA unless the caller passes device="cpu".
 
 The fused path's tail is chosen at every call, as in the JAX package:
 JDA_TPU_TAIL other than "gather" runs the scales of windows up to 256 px
@@ -150,8 +153,12 @@ class Detector:
     The fused path runs a whole batch in one pass (ops/fused.py).  The
     non-fused path takes one image per call.  Single-scale models: the
     dense stage-0 filter over the whole ladder (one `dense0_image` call),
-    then every survivor through all stages at once (cascade_full).  Other
-    models, per geometry batch (`_run_batch`):
+    then every survivor through all stages at once (cascade_full).
+    Multi-scale models with T > 0 on a CUDA device: every window of the
+    ladder through the tail kernel's level walk (`_walk_levels`, one
+    launch), stage 0's chain from cart 0, equal to `_run_batch` window
+    for window.  Other models, and every model on the CPU, per geometry
+    batch (`_run_batch`):
       1. *prefilter*: a dense result where the caller has one, or else the
          first `prefilter_carts` carts of stage 0 on every window in
          slabs; survivors are compacted.  This recovers the reference's
@@ -160,7 +167,10 @@ class Detector:
          regression, compacting survivors between stages.
     Re-running carts [0, prefilter) on survivors is exact: tree descent
     depends only on the (unchanged within a stage) shape, and the score
-    chain recomputes the identical float sequence from zero.
+    chain recomputes the identical float sequence from zero.  For the same
+    reason the kernel's walk, which runs stage 0 once from cart 0 and
+    stops each window at its first reject, gives every window the score,
+    alive, nvis and shape that `_run_batch` gives it.
 
     `detect_batch(mesh=)` splits a batch over the ranks of a 1-D
     torch.distributed DeviceMesh ("dp", one process per device): each rank
@@ -390,8 +400,9 @@ class Detector:
 
     def _tail_tables(self) -> Optional[TK.TailTables]:
         """The survivor tail kernel's tables (ops/tail.pack_tables), built at
-        the first fused call of a CUDA detector and kept.  None on the CPU,
-        where the plain tail reads the model's tensors alone."""
+        the first call of a CUDA detector that runs the kernel and kept.
+        None on the CPU, where the plain tail reads the model's tensors
+        alone."""
         if self.device.type != "cuda":
             return None
         if self._tail is None:
@@ -436,6 +447,27 @@ class Detector:
             img, plan["tabs"], meta=plan["scales"], depth=self.depth,
             prepared=self._dense_tables(plan),
         )
+
+    def _walk_levels(
+        self, flat_dev: torch.Tensor, plan: dict, offsets: np.ndarray, strides: np.ndarray
+    ) -> Dict[str, torch.Tensor]:
+        """Every window of a plan through the tail kernel's multi-scale walk
+        in one launch (ops/tail.walk with `levels`): `flat_dev` is the
+        image's stacked pyramid on the device, `offsets` and `strides` its
+        levels'.  Each window's o/h/q patch bases (window_geometry's
+        `base`) go to the device at the plan's first walk and stay with it:
+        they follow from the image size, which keys the plan.  Returns per
+        window, on the device and in enumeration order, `score`, `alive`,
+        `nvis` and `shape`, as `_run_batch` gives them."""
+        if "levels" not in plan:
+            base = window_geometry(plan["x"], plan["y"], plan["win"], offsets, strides)["base"]
+            plan["levels"] = (torch.as_tensor(base, device=self.device),
+                              tuple(int(s) for s in strides))
+        out, _ = TK.walk(
+            self._tail_tables(), flat_dev[None], plan["xywin"], None, None, None, None,
+            None, rounding=self.rounding, split=0, levels=plan["levels"],
+        )
+        return out
 
     def _run_batch(
         self,
@@ -553,8 +585,9 @@ class Detector:
         self, gray, scale, min_size, max_size, th, nms_overlap, batch
     ) -> DetectionResult:
         """One image through the host-built pyramid and ladder: the dense
-        filter plus cascade_full on the survivors (single-scale models), or
-        _run_batch (multi-scale and T == 0 models)."""
+        filter plus cascade_full on the survivors (single-scale models),
+        the tail kernel's level walk (multi-scale models with T > 0 on a
+        CUDA device), or _run_batch (the rest)."""
         img_h, img_w = gray.shape
         with tracing.span("pyramid"):
             if self.single_scale:
@@ -607,6 +640,18 @@ class Detector:
                 torch.cat([p[k] for p in parts]).cpu().numpy()
                 for k in ("score", "alive", "shape")
             )
+            keep = alive & (scores >= th)  # final threshold (c/jda.c:413-414)
+            cand, cscores, cshapes = idx[keep], scores[keep], shapes[keep]
+        elif self.T > 0 and self.device.type == "cuda":
+            # multi-scale: the whole ladder in one launch; only every
+            # window's score and alive come back, and the shapes of those
+            # the final threshold keeps
+            out = self._walk_levels(flat_dev, plan, offsets, strides)
+            scores = out["score"].cpu().numpy()
+            alive = out["alive"].cpu().numpy()
+            cand = np.nonzero(alive & (scores >= th))[0]
+            cscores = scores[cand]
+            cshapes = out["shape"][torch.as_tensor(cand, device=self.device)].cpu().numpy()
         else:
             idx = np.arange(n)
             scores = np.zeros(n, np.float32)
@@ -622,14 +667,14 @@ class Detector:
                 scores[s0:s1] = res["score"]
                 alive[s0:s1] = res["alive"]
                 shapes[s0:s1] = res["shape"]
+            keep = alive & (scores >= th)
+            cand, cscores, cshapes = idx[keep], scores[keep], shapes[keep]
 
-        keep = alive & (scores >= th)  # final threshold (c/jda.c:413-414)
-        cand = idx[keep]
         bboxes = np.stack([x[cand], y[cand], win[cand]], axis=1).astype(np.int32)
-        picked = NMS.nms_c(bboxes, scores[keep], nms_overlap)
+        picked = NMS.nms_c(bboxes, cscores, nms_overlap)
         bboxes = bboxes[picked]
-        cscores = scores[keep][picked]
-        out = shapes[keep][picked]
+        cscores = cscores[picked]
+        out = cshapes[picked]
 
         # landmark relocation (c/jda.c:465-474)
         sz = bboxes[:, 2:3].astype(np.float32)
@@ -652,7 +697,7 @@ class Detector:
     ) -> DetectionResult:
         """jdaDetect-compatible detection (c/jda.c:443-480) of one image.
         `batch` bounds the windows per geometry batch of the non-fused
-        path."""
+        path's `_run_batch`."""
         with tracing.call("detect", 1):
             if gray.dtype != np.uint8 or gray.ndim != 2:
                 raise ValueError("detect: gray must be a 2-D uint8 image")

@@ -29,7 +29,8 @@ Spans of the detection path (name: where):
                 previous copy to have read the pinned buffer
     dense0      the dense stage-0 filter's host checks and launches
     tail        the survivor tail kernel's host checks and launch (B; one
-                per gather group on a CUDA device, ops/tail.py)
+                per gather group, and one per image of a multi-scale model
+                on the non-fused path, on a CUDA device, ops/tail.py)
     stage (t)   one stage of the plain tail, its compactions included
     compact     survivor compaction (waits in torch.nonzero for the device)
     descend     tree descent of a cart chunk
@@ -40,21 +41,25 @@ Spans of the detection path (name: where):
     nms         non-maximum suppression (with the C++ route's relocation)
     pyramid     the non-fused path's o/h/q levels of one image (trivial
                 for a single-scale model), stacked and uploaded
-    run_batch   one geometry batch of the non-fused path's multi-scale
-                and T == 0 branch (`Detector._run_batch`); the plain
-                tail's spans open inside it
+    run_batch   one geometry batch of the non-fused path's plain route
+                for multi-scale and T == 0 models (`Detector._run_batch`:
+                the CPU, and T == 0 models on a card); the plain tail's
+                spans open inside it
 
 Where the tail kernel runs, `stage`, `descend`, `score_chain` and
-`regression` do not open for its group: they are the plain tail's (the
-CPU, the canvas groups, the non-fused path, training).
+`regression` do not open for its lanes: they are the plain tail's (the
+CPU, the canvas groups, `_run_batch`, training).
 
 Counters: `plan.builds` (plans built on a cache miss), `tail.lane_carts`
 (lanes x carts the plain tail's descent computed), `tail_kernel.launches`
 and `tail_kernel.lanes` (the tail kernel's launches and the lanes queued
-to it), `dense0_filter.launches` and `dense0_image.launches` (kernels
-launched by the two stage-0 filters), `run_batch.calls` and
-`run_batch.windows` (the non-fused branch's `_run_batch` calls and the
-windows entering them).
+to it), `tail_kernel.ms_lanes` (the lanes queued to its multi-scale walk:
+the multi-scale windows of the non-fused path on a card),
+`dense0_filter.launches` and `dense0_image.launches` (kernels launched by
+the two stage-0 filters), `run_batch.calls` and `run_batch.windows` (the
+non-fused branch's `_run_batch` calls and the windows entering them).  On
+the multi-scale cell, ms_lanes / (ms_lanes + run_batch.windows) is the
+share of windows the kernel walked.
 """
 
 from __future__ import annotations

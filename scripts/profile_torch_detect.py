@@ -33,8 +33,9 @@ beside a device-only profile, on the one clock both use.  Three parts
          own time, idle by span, host ms of the survivor tail (the plain
          tail's spans and the kernel's `tail`) and of the detector API
          per image and per call, the tail's lane use against the
-         reference's cart visits (plain tail) and the tail kernel's
-         launches and lanes a call.
+         reference's cart visits (plain tail), the tail kernel's
+         launches and lanes a call, and the share of the multi-scale
+         windows it walked (tail_kernel.ms_lanes against run_batch.windows).
 
 Ends with the card's name and power limit; --out writes every reading to
 FILE as JSON.
@@ -270,6 +271,14 @@ def cost_part():
     return res
 
 
+def ms_share(counters):
+    """tail_kernel.ms_lanes over it plus run_batch.windows, or None where
+    neither was counted."""
+    ms = counters.get("tail_kernel.ms_lanes", 0)
+    total = ms + counters.get("run_batch.windows", 0)
+    return ms / total if total else None
+
+
 def cells_part(names, calls=CALLS):
     import torch
 
@@ -322,6 +331,9 @@ def cells_part(names, calls=CALLS):
             tail_visits=tail_visits, lane_carts=sums.counters.get("tail.lane_carts", 0),
             tail_kernel_launches_per_call=sums.counters.get("tail_kernel.launches", 0) / calls,
             tail_kernel_lanes_per_call=sums.counters.get("tail_kernel.lanes", 0) / calls,
+            # the multi-scale windows the kernel walked, of all the non-fused
+            # path's multi-scale windows (the rest went through _run_batch)
+            ms_kernel_share=ms_share(sums.counters),
             self_ms_per_call={k: 1e3 * v / calls for k, v in sums.self_s.items()},
             idle_s=dict(sorted(sums.idle_s.items(), key=lambda kv: -kv[1])),
             counters=dict(sums.counters),

@@ -8,8 +8,10 @@ run where the port runs:
 
 Everything here is bit-exact: the kernels' float ops are IEEE
 round-to-nearest in the plain versions' order.  On the card the fused
-pass's gather tail is the `tail_walk` kernel; its other groups and the
-non-fused path run the same PyTorch ops on both devices.
+pass's gather tail is the `tail_walk` kernel, and so is the non-fused
+path's walk of a multi-scale model's ladder; the fused pass's other groups
+and the rest of the non-fused path run the same PyTorch ops on both
+devices.
 """
 
 import os
@@ -333,8 +335,9 @@ def test_unfused_detector_on_card_matches_cpu(cuda, cpu_det, monkeypatch, roundi
 
 
 def test_multi_scale_detector_on_card_matches_cpu(cuda):
-    """A multi-scale model (pyramid, prefilter, stage loop of _run_batch)
-    on the card, bit-equal to the CPU port on the full ladder."""
+    """A multi-scale model (pyramid, then the tail kernel's level walk of
+    the whole ladder) on the card, bit-equal to the CPU port's
+    `_run_batch` (prefilter, stage loop) on the full ladder."""
     m = jt.synthetic_model(T=3, K=24, landmark_n=9, seed=14, multi_scale=True,
                            reject_rate=0.1)
     img = _img(96, 128, 15)
@@ -835,6 +838,98 @@ def test_tail_kernel_gather_group_of_grouped_pass(cuda, cpu_det, raw, monkeypatc
                          lambda w: [2 * (T - 1)],  # groups 128, 256, then the gather group
                          canvas=True)
     assert len(want[0]["counts"]) == 3 * (T - 1) and int(want[0]["counts"][4]) > 0
+
+
+# -- the tail kernel's multi-scale walk (Detector._walk_levels) ------------------
+
+
+def _ms_ladder(det, H, W, seed):
+    """One image's stacked pyramid on the detector's device, its levels'
+    offsets and strides, its plan and window_geometry."""
+    from jda_tpu_torch.detect import window_geometry
+    from jda_tpu_torch.ops import resize as R
+
+    flat, offsets, strides = R.stack_pyramid(R.pyramid_c(_img(H, W, seed)))
+    plan = det._plan(H, W, 1.25, 24, min(H, W))
+    geom = window_geometry(plan["x"], plan["y"], plan["win"], offsets, strides)
+    return torch.from_numpy(flat).to(det.device), offsets, strides, plan, geom
+
+
+@pytest.mark.parametrize("T,K,reject,rounding,prefilter,hw", [
+    (1, 40, 0.05, False, 64, (60, 80)),
+    (2, 45, 0.05, True, 8, (72, 56)),
+    (3, 70, 0.03, False, 8, (60, 80)),
+    (3, 45, 0.05, True, 64, (72, 56)),
+    (5, 540, None, False, 64, (240, 320)),
+], ids=["T1-trunc", "T2-round-pre8", "T3-K70-pre8", "T3-round", "T5-K540"])
+def test_level_walk_matches_run_batch(cuda, T, K, reject, rounding, prefilter, hw):
+    """The kernel's multi-scale walk of a whole ladder (one launch) against
+    the plain `_run_batch` on the card, bit for bit: every window's score,
+    alive, nvis and shape.  K is not a multiple of 32; the full ladders'
+    half and quarter patches read past the stacked pyramid's end; the last
+    case is the benchmark's geometry and drop profile."""
+    kw = (dict(drop_profile=jt.realistic_drop_profile(T, K)) if reject is None
+          else dict(reject_rate=reject))
+    m = jt.synthetic_model(T=T, K=K, landmark_n=9 if K < 540 else 27, seed=4 + T,
+                           multi_scale=True, **kw)
+    gdet = jt.Detector(m, prefilter_carts=prefilter, rounding=rounding)
+    flat, offsets, strides, plan, geom = _ms_ladder(gdet, *hw, 7)
+    q_end = geom["base"][:, 2] + (plan["win"] - 1) * (strides[2] + 1)
+    assert (q_end >= flat.shape[0]).any()
+    want = gdet._run_batch(flat, geom, plan["n"], rounding=rounding)
+    with tracing.counting() as c:
+        got = gdet._walk_levels(flat, plan, offsets, strides)
+        torch.cuda.synchronize()
+    assert (c.get("tail_kernel.launches"), c.get("tail_kernel.ms_lanes")) == (1, plan["n"])
+    assert 0 < want["alive"].sum() < plan["n"], "degenerate fixture"
+    for k in ("score", "alive", "nvis", "shape"):
+        assert np.array_equal(got[k].cpu().numpy(), want[k]), k
+
+
+def test_multi_scale_detect_walks_one_launch_an_image(cuda, monkeypatch):
+    """detect_stream, detect_batch and detect of a multi-scale model on the
+    card: one tail kernel launch an image, every ladder window queued to
+    the level walk, none of the plain tail's spans or `_run_batch`, and the
+    CPU port's answers bit for bit.  CppDetector.detect still takes
+    `_run_batch` on the card."""
+    from jda_tpu_torch.cascador import CppDetector
+
+    m = jt.synthetic_model(T=3, K=45, landmark_n=9, seed=14, multi_scale=True,
+                           reject_rate=0.05)
+    gdet, cdet = jt.Detector(m), jt.Detector(m, device="cpu")
+    grays = [_img(60, 80, 21), _img(72, 56, 22), _img(60, 80, 23)]
+    windows = sum(gdet._plan(g.shape[0], g.shape[1], 1.25, 24, min(g.shape))["n"]
+                  for g in grays)
+    calls = []
+    run_batch = jt.Detector._run_batch
+    monkeypatch.setattr(jt.Detector, "_run_batch",
+                        lambda self, *a, **kw: calls.append(1) or run_batch(self, *a, **kw))
+    want = cdet.detect_batch(grays, th=-5.0)
+    assert sum(r.n for r in want) > 0 and len(calls) == len(grays)
+    calls.clear()
+    for run in (lambda: gdet.detect_stream(grays, batch=2, th=-5.0),
+                lambda: gdet.detect_batch(grays, th=-5.0),
+                lambda: [gdet.detect(g, th=-5.0) for g in grays]):
+        tracing.start()
+        try:
+            got = run()
+            torch.cuda.synchronize()
+        finally:
+            tracing.stop()
+        spans, counters = tracing.drain()
+        names = {s.name for s in spans}
+        assert counters.get("tail_kernel.launches") == len(grays)
+        assert counters.get("tail_kernel.ms_lanes") == counters.get("tail_kernel.lanes") == windows
+        assert not {"score_chain", "descend", "regression", "run_batch"} & names
+        assert "run_batch.calls" not in counters and not calls
+        for a, b in zip(want, got):
+            for f in ("bboxes", "scores", "shapes"):
+                np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+    cpp = CppDetector(m, jt.Config(T=3, K=45, landmark_n=9, fddb_detect_method=1,
+                                   fddb_minimum_size=24, fddb_step=8))
+    with tracing.counting() as c:
+        cpp.detect(grays[0])
+    assert len(calls) == 1 and not any(k.startswith("tail_kernel.") for k in c)
 
 
 def test_tail_wrapper_rejects_bad_inputs(cuda, cpu_det):

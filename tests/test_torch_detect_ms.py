@@ -2,7 +2,9 @@
 through the port's C-API Detector, against the benchmark's plain
 multi-scale reference (benchmark/reference_ms.py), on the CPU: answers and
 cart visits exactly equal, on images whose half and quarter patches read
-past the stacked pyramid's end."""
+past the stacked pyramid's end.  On the CPU, and through
+`CppDetector.detect`, such a model takes `_run_batch` (on a card the C API
+walks it in the tail kernel: tests/test_torch_cuda.py)."""
 
 import json
 import os
@@ -16,6 +18,9 @@ from benchmark import model_ms as MM
 from benchmark import reference as R
 from benchmark import reference_ms as RM
 from jda_tpu_torch import params as P
+from jda_tpu_torch import tracing
+from jda_tpu_torch.cascador import CppDetector
+from jda_tpu_torch.config import Config
 from jda_tpu_torch.detect import Detector
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -104,3 +109,28 @@ def test_model_module_is_the_port_generator():
     m = MM.fields(config, ROOT)
     fresh = F.calibrate_thresholds(m["leaf_scores"], F.realistic_drop_profile(5, 540), 7)
     assert np.array_equal(m["cart_th"], fresh)
+
+
+def test_cpu_and_cpp_route_take_run_batch(case, monkeypatch):
+    """The CPU detector's multi-scale route is `_run_batch` (counted in
+    `run_batch.calls` and `.windows`), and so is `CppDetector.detect`'s
+    method 1; neither queues a lane to the tail kernel."""
+    m, det, imgs, _ = case
+    img = imgs[HW[0]][0]
+    calls = []
+    run_batch = Detector._run_batch
+    monkeypatch.setattr(Detector, "_run_batch",
+                        lambda self, *a, **kw: calls.append(a[2]) or run_batch(self, *a, **kw))
+    cpp = CppDetector(det.params, Config(T=2, K=12, landmark_n=27, fddb_detect_method=1,
+                                         fddb_minimum_size=24, fddb_step=8),
+                      device="cpu")
+    tracing.start()
+    try:
+        det.detect(img, **KW)
+        cpp.detect(img)
+    finally:
+        tracing.stop()
+    _, counters = tracing.drain()
+    assert len(calls) == 2 and counters["run_batch.calls"] == 1
+    assert counters["run_batch.windows"] == calls[0] > 0 and calls[1] > 0
+    assert not any(k.startswith("tail_kernel.") for k in counters)

@@ -4,8 +4,10 @@ The kernel itself runs only on a card (tests/test_torch_cuda.py).  Here:
 its tables against the model's fields, its compaction points against
 run_fused's counts, its scheme (every lane through every stage with no
 compaction, survivors counted at each compaction point, the lanes that
-passed them all kept) replayed in the plain ops against run_fused, the
-wrapper's checks, and the CPU path, which never loads a library.
+passed them all kept) replayed in the plain ops against run_fused, its
+multi-scale walk (level reads, the int32-minimum fill, stage 0's chain from
+cart 0; tests/torch_walk.py) against `Detector._run_batch`, the wrapper's
+checks, and the CPU path, which never loads a library.
 """
 
 import dataclasses
@@ -16,11 +18,14 @@ import torch
 
 import jda_tpu_torch as jt
 from jda_tpu_torch import tracing
+from jda_tpu_torch.detect import window_geometry
 from jda_tpu_torch.ops import _build
 from jda_tpu_torch.ops import cascade as C
 from jda_tpu_torch.ops import dense0 as D0
 from jda_tpu_torch.ops import fused as F
+from jda_tpu_torch.ops import resize as R
 from jda_tpu_torch.ops import tail as TK
+import torch_walk
 
 
 @pytest.fixture(autouse=True)
@@ -52,17 +57,20 @@ def _run_fused(det, imgs, dims):
     return out, plan
 
 
-@pytest.mark.parametrize("depth", [4, 3])
-def test_pack_tables_lays_out_the_model(depth):
-    m = jt.synthetic_model(T=3, K=12, landmark_n=9, tree_depth=depth, seed=5)
+@pytest.mark.parametrize("depth,multi", [(4, False), (3, False), (4, True)],
+                         ids=["4", "3", "4-multi-scale"])
+def test_pack_tables_lays_out_the_model(depth, multi):
+    m = jt.synthetic_model(T=3, K=12, landmark_n=9, tree_depth=depth, seed=5,
+                           multi_scale=multi)
     dev = m.device_tensors("cpu")
     t = TK.pack_tables(dev, depth)
     node_n = (1 << (depth - 1)) - 1
     assert (t.T, t.K, t.depth, t.L2) == (3, 12, depth, 18)
     assert t.nodes_i.shape == (3, 12, node_n, 4) and t.nodes_i.dtype == torch.int32
-    for i, f in enumerate(("lmk1", "lmk2", "feat_th")):
+    for i, f in enumerate(("lmk1", "lmk2", "feat_th", "scale")):
         assert torch.equal(t.nodes_i[..., i], dev[f])
-    assert not t.nodes_i[..., 3].any()
+    # the level column: all o for a single-scale model, each of o/h/q else
+    assert set(t.nodes_i[..., 3].unique().tolist()) == ({0, 1, 2} if multi else {0})
     assert torch.equal(t.nodes_f[..., :2], dev["off1"])
     assert torch.equal(t.nodes_f[..., 2:], dev["off2"])
     assert t.cartf.shape == (3, 12, node_n + 4)
@@ -82,6 +90,10 @@ def test_pack_tables_rejects_what_the_kernel_cannot_read():
     lmk[1, 3, 2] = 5  # one past the last of 5 landmarks
     with pytest.raises(ValueError, match="outside the shape"):
         TK.pack_tables(dict(dev, lmk2=lmk), 4)
+    scale = dev["scale"].clone()
+    scale[0, 1, 0] = 3  # no fourth level
+    with pytest.raises(ValueError, match="level"):
+        TK.pack_tables(dict(dev, scale=scale), 4)
 
 
 @pytest.mark.parametrize("T,K", [(2, 20), (3, 20), (4, 20), (2, 160), (3, 160)])
@@ -163,6 +175,48 @@ def test_scheme_without_compaction_equals_run_fused(K, dead):
         assert torch.equal(v, want[k]), k
 
 
+def _ms_ladder(det, H, W, seed):
+    """One image's stacked pyramid, its plan and window_geometry."""
+    flat, offsets, strides = R.stack_pyramid(R.pyramid_c(_img(H, W, seed)))
+    plan = det._plan(H, W, 1.25, 24, min(H, W))
+    geom = window_geometry(plan["x"], plan["y"], plan["win"], offsets, strides)
+    return torch.from_numpy(flat), strides, plan, geom
+
+
+@pytest.mark.parametrize("T,K,reject,rounding,prefilter,hw", [
+    (1, 40, 0.05, False, 64, (60, 80)),
+    (2, 45, 0.05, True, 8, (72, 56)),
+    (3, 70, 0.03, False, 8, (60, 80)),
+    (3, 45, 0.05, True, 64, (72, 56)),
+], ids=["T1-trunc", "T2-round-pre8", "T3-K70-pre8", "T3-round"])
+def test_level_walk_equals_run_batch(T, K, reject, rounding, prefilter, hw, monkeypatch):
+    """The multi-scale kernel's scheme (every window of the ladder through
+    every stage with no compaction, stage 0's chain from cart 0, each node
+    reading its level, the int32 minimum past the pyramid's end) equals
+    `_run_batch` (the prefilter, then every stage on the compacted
+    survivors) in every window's score, alive, nvis and shape.  The full
+    ladders' quarter patches run past the stacked pyramid's end, and the
+    fill decides windows there."""
+    m = jt.synthetic_model(T=T, K=K, landmark_n=9, seed=4 + T, multi_scale=True,
+                           reject_rate=reject)
+    det = jt.Detector(m, prefilter_carts=prefilter, rounding=rounding, device="cpu")
+    flat, strides, plan, geom = _ms_ladder(det, *hw, 7)
+    want = det._run_batch(flat, geom, plan["n"], rounding=rounding)
+    args = (TK.pack_tables(det.dev, det.depth), flat, plan["xywin"],
+            torch.from_numpy(geom["base"]), tuple(strides))
+    got = torch_walk.level_walk_reference(*args, rounding=rounding)
+    assert 0 < want["alive"].sum() < plan["n"], "degenerate fixture"
+    for k in ("score", "alive", "nvis", "shape"):
+        assert np.array_equal(got[k].numpy(), want[k]), k
+    q_end = geom["base"][:, 2] + (plan["win"] - 1) * (strides[2] + 1)
+    assert (q_end >= flat.shape[0]).any()
+    real = torch_walk.level_pixel
+    monkeypatch.setattr(torch_walk, "level_pixel",
+                        lambda p, i: torch.where(i < p.shape[0], real(p, i), 0))
+    zero = torch_walk.level_walk_reference(*args, rounding=rounding)
+    assert not torch.equal(zero["score"], got["score"])
+
+
 def _walk_args(T=3, K=20, B=2, n=10, N=3):
     m = jt.synthetic_model(T=T, K=K, landmark_n=9, seed=4)
     tabs = TK.pack_tables(m.device_tensors("cpu"), 4)
@@ -189,6 +243,17 @@ def test_walk_raises_on_the_cpu_inside_its_span():
     assert counters == {}
 
 
+def test_level_walk_raises_on_the_cpu_after_its_checks():
+    """The multi-scale walk (every window, `sel`, `score0` and `nvis_img`
+    None, T = 1) passes the checks and finds no kernel for the CPU."""
+    tabs, args = _walk_args(T=1)
+    args.update(imgs=torch.zeros((2, 2800), dtype=torch.uint8), sel=None, score0=None,
+                nvis0=None, lbf=None, nvis_img=None)
+    levels = (torch.zeros((10, 3), dtype=torch.int32), (40, 28, 20))
+    with pytest.raises(ValueError, match="no kernel for device cpu"):
+        TK.walk(tabs, **args, rounding=False, split=0, levels=levels)
+
+
 @pytest.mark.parametrize("bad,match", [
     (dict(imgs=torch.zeros((2, 40, 40))), "uint8"),
     (dict(sel=torch.zeros(3, dtype=torch.int32)), "sel"),
@@ -199,13 +264,22 @@ def test_walk_raises_on_the_cpu_inside_its_span():
     (dict(split=16), "split"),
     (dict(split=64), "split"),
     (dict(T=1), "T must be"),
-], ids=["imgs", "sel", "xywin", "score0", "lbf", "nvis_img", "split-round", "split-K", "T"])
+    (dict(score0=None), "go with score0"),
+    (dict(score0=None, nvis0=None), "go with score0"),
+    (dict(levels=(torch.zeros((10, 3), dtype=torch.int32), (40, 28, 20))), "pyramids"),
+    (dict(imgs=torch.zeros((2, 2800), dtype=torch.uint8),
+          levels=(torch.zeros((10, 2), dtype=torch.int32), (40, 28, 20))), "base"),
+    (dict(imgs=torch.zeros((2, 2800), dtype=torch.uint8),
+          levels=(torch.zeros((10, 3), dtype=torch.int32), (40, 0, 20))), "strides"),
+], ids=["imgs", "sel", "xywin", "score0", "lbf", "nvis_img", "split-round", "split-K", "T",
+        "nvis0-alone", "lbf-alone", "levels-imgs", "levels-base", "levels-strides"])
 def test_walk_rejects_bad_inputs(bad, match):
     bad = dict(bad)
     tabs, args = _walk_args(T=bad.pop("T", 3))
     split = bad.pop("split", 0)
+    levels = bad.pop("levels", None)
     with pytest.raises(ValueError, match=match):
-        TK.walk(tabs, **dict(args, **bad), rounding=False, split=split)
+        TK.walk(tabs, **dict(args, **bad), rounding=False, split=split, levels=levels)
 
 
 def test_cpu_detector_never_loads_a_library(monkeypatch):

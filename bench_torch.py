@@ -29,9 +29,8 @@ runtime (`omp_set_num_threads`) around every baseline call, and restores
 it after, which leaves PyTorch's own threads as they were.
 
 Prints the card (nvidia-smi name and power limit) on stderr, then one JSON
-line on stdout: bench.py's keys, `baseline` ("oracle" or "native"), the
-VGA `batch`, and the `tail` and `canvas` the detector selected
-(`selected`).
+line on stdout: bench.py's keys, `baseline` ("oracle" or "native") and the
+VGA `batch`.
 `--device` defaults to the card and raises without one; `--device cpu`
 runs the plain PyTorch path.
 """
@@ -122,14 +121,6 @@ def windows_per_image(h, w):
     return len(enumerate_windows(w, h, KW["scale"], KW["min_size"], min(h, w))[0])
 
 
-def selected(det):
-    """The tail and canvas mode `det` runs under the environment:
-    JDA_TPU_TAIL, and JDA_TPU_CANVAS where a canvas tail runs (None under
-    the gather tail, which JDA_TPU_CANVAS does not change)."""
-    tail = os.environ.get("JDA_TPU_TAIL", "gather")
-    return {"tail": tail, "canvas": None if tail == "gather" else det._canvas_mode()}
-
-
 def run(det, imgs, frames, batch, reps, baseline, batch_1080=4):
     """bench.py's protocol over `imgs` (and `frames` at `batch_1080`, unless
     None) on the detector `det`, against `baseline` (an object with
@@ -173,7 +164,7 @@ def run(det, imgs, frames, batch, reps, baseline, batch_1080=4):
             p1080_windows_per_frame=w1080,
             p1080_windows_per_sec=round(w1080 * len(frames) / s1080, 1),
         )
-    line.update(baseline=baseline.name, batch=batch, **selected(det))
+    line.update(baseline=baseline.name, batch=batch)
     return line, res
 
 

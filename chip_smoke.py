@@ -110,18 +110,8 @@ Phases, each fatal on failure:
      `dense0_filter` launches, and on 17 VGA images at two ranks over gloo,
      equal to the same images without a mesh, two launches per rank; (d)
      dryrun_multichip(1) (NCCL) and dryrun_multichip(2, backend="gloo");
- 21. the canvas tail (ops/mxu_tail.py) on every route that selects it,
-     each run under the gather tail first and again last and under
-     JDA_TPU_TAIL=mxu with JDA_TPU_CANVAS=rows and =gather, host-timed in
-     turns: phase 3's VGA stream (2 chunks of 16) and phase 5's 1080p
-     batch, bit-equal to those phases, and the flagship model's method 1
-     at B=8 on phase 13's scenes; method 0 on a VGA scene and a 1080p
-     frame under JDA_TPU_BUCKETS=none and =default; every route bit-equal
-     to its gather twin with two `dense0_filter` launches per fused batch
-     (counts set to 0 before each); the lanes of each group at each
-     compaction point and the canvas bytes per bucket; the device's idle
-     share of one VGA batch on each tail (torch.profiler, device only);
-     the native C library on two VGA images under the canvas tail;
+ 21. (none: the port has no canvas tail to check; the later phases keep
+     their numbers)
  22. the flagship workflow (scripts/train_flagship_torch.py,
      scripts/eval_synth_scenes_torch.py), each part fatal on failure:
      (a) SHA-256 digests of the flagship generators' output (64 make_face
@@ -182,7 +172,6 @@ The last lines are the card (nvidia-smi name and power limit), a
 CUDA device it exits non-zero and prints no result.
 """
 
-import contextlib
 import copy
 import dataclasses
 import functools
@@ -821,16 +810,13 @@ def flagship_trainer(c, rows, gts, bgs, device):
     return tr
 
 
-def device_busy(run, host_ops=True):
-    """(wall s, device busy s, device events) of run() under torch.profiler;
-    host_ops=False traces the device alone (far fewer events to read back
-    on a call of ~100 k launches)."""
+def device_busy(run):
+    """(wall s, device busy s, device events) of run() under torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    acts = [ProfilerActivity.CPU] * host_ops + [ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -1260,173 +1246,6 @@ def mesh_phase(card, model, vga, one, refs):
     return {"nccl_1": [det1["launches"][0]], "gloo_2": [d["launches"][0] for _, d in ranks]}
 
 
-@contextlib.contextmanager
-def tail_env(**env):
-    """The tail's mode variables set for a block, and restored after it."""
-    old = {k: os.environ.get(k) for k in env}
-    os.environ.update({k: v for k, v in env.items() if v is not None})
-    for k in (k for k, v in env.items() if v is None):
-        os.environ.pop(k, None)
-    try:
-        yield
-    finally:
-        for k, v in old.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-
-
-# the routes of phase 21: JDA_TPU_TAIL / JDA_TPU_CANVAS, the gather tail
-# first and again last (its twin, timed in turns with the canvas routes)
-CANVAS_ROUTES = (("gather", dict(JDA_TPU_TAIL="gather", JDA_TPU_CANVAS=None)),
-                 ("mxu rows", dict(JDA_TPU_TAIL="mxu", JDA_TPU_CANVAS="rows")),
-                 ("mxu gather", dict(JDA_TPU_TAIL="mxu", JDA_TPU_CANVAS="gather")),
-                 ("gather again", dict(JDA_TPU_TAIL="gather", JDA_TPU_CANVAS=None)))
-
-
-def group_counts(det, plan, counts):
-    """A fused batch's counts split per group ([(S, [lanes at each
-    compaction point])]) and the canvas bytes of each canvas group."""
-    groups = det._groups(plan)
-    if groups is None:
-        return [("one gather pass", counts)], {}
-    per = len(counts) // len(groups)
-    split = [(g["S"] or "gather", counts[i * per : (i + 1) * per])
-             for i, g in enumerate(groups)]
-    return split, {S: c[0] * S * S for S, c in split if S != "gather"}
-
-
-def canvas_tail_phase(model, vga, res, hd, res_hd):
-    """Phase 21: the canvas tail on every route that selects it, each
-    bit-equal to its gather-tail twin and timed beside it.  Returns the
-    `dense0_filter` launches of each route, counted from 0 just before it."""
-    import torch
-    import jda_tpu_torch as jt
-    from jda_tpu_torch import native
-    from jda_tpu_torch.cascador import CppDetector
-    from jda_tpu_torch import tracing
-
-    t_phase = time.perf_counter()
-    launches = {}
-    det = jt.Detector(model)
-
-    def route(label, tag, fn, want, same, expect, counts=None):
-        """One route under each tail mode: warm, then counted and timed.
-        `counts()`, where given, reads the lanes per group at each
-        compaction point and the canvas bytes per bucket: from the timed
-        run's stats, or, for method 1, which keeps none, from one more
-        fused pass of the same batch after the launches are read (the
-        pass is deterministic, so its lanes are the timed run's)."""
-        times = {}
-        for name, env in CANVAS_ROUTES:
-            with tail_env(**env):
-                fn()  # warm: the plan, the allocator
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                with tracing.counting() as c:
-                    got = fn()
-                torch.cuda.synchronize()
-                times[name] = time.perf_counter() - t
-                n = c.get("dense0_filter.launches", 0)
-                if n != expect:
-                    raise AssertionError(f"[21] {label}, {name}: {n} dense0_filter launches")
-                launches[f"{tag} {name}"] = n
-                for i, (a, b) in enumerate(zip(want, got)):
-                    same(a, b, f"[21] {label}, {name}, image {i}: differs from the gather tail")
-                if len(got) != len(want):
-                    raise AssertionError(f"[21] {label}, {name}: {len(got)} results")
-                if counts is not None and name != "gather again":
-                    split, canvas_bytes = counts()
-                    log(f"[21] {label}, {name}: lanes per group at each compaction point "
-                        f"{split}; canvas bytes per bucket {canvas_bytes}")
-        log(f"[21] {label}: " + ", ".join(f"{k} {v:.3f} s" for k, v in times.items())
-            + f"; {expect} dense0_filter launches each; all equal to the gather tail")
-        return times
-
-    # (a) the bench model's streams: VGA B=16 (2 chunks) and 1080p B=4
-    for label, tag, imgs, want, batch, expect in (
-            ("VGA detect_stream B=16, 32 images", "vga", vga[:32], res[:32], 16, 2 * 2),
-            ("1080p detect_stream B=4, 4 frames", "1080p", hd[:4], res_hd, 4, 2)):
-        H, W = imgs[0].shape
-        plan = det._plan(H, W, 1.25, 24, min(H, W))
-        route(label, tag, lambda: det.detect_stream(imgs, batch=batch, **BENCH_KW), want,
-              same_result, expect,
-              counts=lambda: group_counts(det, plan, det.last_stats["counts"]))
-    # the device's idle share of one VGA batch, gather tail and canvas tail
-    for name, env in CANVAS_ROUTES[:2]:
-        with tail_env(**env):
-            t = time.perf_counter()
-            wall, busy, n_ev = device_busy(lambda: det.detect_batch(vga[:16], **BENCH_KW),
-                                           host_ops=False)
-        log(f"[21] VGA B=16, {name}: one batch {wall:.3f} s under the profiler (device "
-            f"only), device busy {busy:.4f} s, idle share {1 - busy / wall:.4f}, {n_ev} "
-            f"device events; traced and read in {time.perf_counter() - t:.1f} s")
-
-    # (b) the C library on two VGA images, canvas tail (rows)
-    with tempfile.TemporaryDirectory() as tmp, tail_env(JDA_TPU_TAIL="mxu",
-                                                         JDA_TPU_CANVAS="rows"):
-        path = os.path.join(tmp, "bench.model")
-        jt.save_model(model, path, dtype="double")
-        ndet = native.NativeDetector(path, dtype="double")
-        cdet = jt.Detector(jt.load_model(path, dtype="double"))
-        for i in range(2):
-            nb, nsh, nsc = ndet.detect(vga[i], **BENCH_KW)
-            r = cdet.detect(vga[i], **BENCH_KW)
-            if not np.array_equal(nb, r.bboxes):
-                raise AssertionError(f"[21] image {i}: boxes differ from the C library "
-                                     f"({len(nb)} vs {r.n})")
-            ds = float(np.abs(nsc - r.scores).max()) if len(nb) else 0.0
-            dsh = float(np.abs(nsh - r.shapes).max()) if len(nb) else 0.0
-            if ds > 2e-4 or dsh > 2e-3:
-                raise AssertionError(f"[21] image {i}: score diff {ds}, shape diff {dsh}")
-            log(f"[21] canvas tail, image {i}: {len(nb)} boxes identical to the C library, "
-                f"max |score| diff {ds:.3g}, max |shape| diff {dsh:.3g}")
-        ndet.close()
-
-    # (c) the C++ path with the flagship model: method 1 at B=8 under
-    # JDA_TPU_TAIL, method 0's banded canvases under JDA_TPU_BUCKETS
-    root = os.path.dirname(os.path.abspath(__file__))
-    flag = jt.load_model(os.path.join(root, "models", "flagship_synth.model"))
-    scenes = [make_scene(480, 640, seed=200 + i)[0] for i in range(8)]
-    hd_scene = make_scene(1080, 1920, seed=300)[0]
-    cpp1 = CppDetector(flag, jt.Config(fddb_detect_method=1))
-    cpp0 = CppDetector(flag, jt.Config(fddb_detect_method=0))
-    want1 = cpp1.detect_batch(scenes)
-    plan1 = cpp1._m1_plan(480, 640)
-    route("C++ method 1 detect_batch B=8", "cpp_m1", lambda: cpp1.detect_batch(scenes),
-          want1, same_cpp, 2, counts=lambda: group_counts(
-              cpp1.det, plan1, cpp1.det._run(plan1, scenes, 8)["counts"].tolist()))
-    for label, tag, img in (("C++ method 0, VGA scene", "cpp_m0_vga", scenes[0]),
-                            ("C++ method 0, 1080p frame", "cpp_m0_1080p", hd_scene)):
-        cpp0.detect(img)  # warm
-        times = {}
-        want0 = None
-        for name, buckets in (("buckets none", "none"), ("buckets default", "default"),
-                              ("buckets default, canvas gather", "default"),
-                              ("buckets none again", "none")):
-            canvas = "gather" if "canvas gather" in name else "rows"
-            with tail_env(JDA_TPU_BUCKETS=buckets, JDA_TPU_CANVAS=canvas):
-                cpp0.detect(img)  # warm the mode
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                with tracing.counting() as c:
-                    got = cpp0.detect(img)
-                torch.cuda.synchronize()
-                times[name] = time.perf_counter() - t
-                n = c.get("dense0_filter.launches", 0)
-                if n != 2:
-                    raise AssertionError(f"[21] {label}, {name}: {n} dense0_filter launches")
-                launches[f"{tag} {name}"] = n
-            if want0 is None:
-                want0 = got
-            same_cpp(want0, got, f"[21] {label}, {name}: differs from the gather group")
-        log(f"[21] {label}: " + ", ".join(f"{k} {v:.3f} s" for k, v in times.items())
-            + f"; {len(want0[0])} faces, 2 dense0_filter launches each, all equal")
-    log(f"[21] done in {time.perf_counter() - t_phase:.1f} s")
-    return launches
-
-
 # -- phase 22: the flagship workflow -----------------------------------------
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1807,13 +1626,13 @@ def holdout_phase(card):
     return sweep_launches, fddb_launches[0]
 
 
-# the keys of bench.py's JSON line (bench_torch.py adds "baseline", "batch",
-# "tail" and "canvas")
+# the keys of bench.py's JSON line (bench_torch.py adds "baseline" and
+# "batch"), and of scripts/bench_1080p.py's less "tail" and "canvas"
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "windows_per_image", "windows_per_sec",
               "runs_images_per_sec", "ref_runs_images_per_sec", "p1080_stream_fps",
               "p1080_windows_per_frame", "p1080_windows_per_sec"}
 BENCH_1080P_KEYS = {"metric", "sec_per_frame_b1", "lat_runs", "stream_fps", "batch", "frames",
-                    "windows_per_frame", "windows_per_sec_stream", "tail", "canvas"}
+                    "windows_per_frame", "windows_per_sec_stream"}
 
 
 def bench_phase(card, model, vga):
@@ -1844,7 +1663,7 @@ def bench_phase(card, model, vga):
         # what there is), warm 2 + timed 4 1080p batches, 2 each
         if launches["bench_torch"] != 2 * (1 + 1 + 2 + 4):
             raise AssertionError(f"[24a] bench_torch.run: {launches['bench_torch']} launches")
-        if set(line) != BENCH_KEYS | {"baseline", "batch", "tail", "canvas"} \
+        if set(line) != BENCH_KEYS | {"baseline", "batch"} \
                 or line["vs_baseline"] is None:
             raise AssertionError(f"[24a] bench_torch line: {line}")
         ds = 0.0
@@ -2443,7 +2262,6 @@ def main(argv=None) -> int:
     trained_launches, train_refs = train_phases(dev, card)
     hard_pool_phase(card)
     mesh_launches = mesh_phase(card, model, vga, one, train_refs)
-    canvas_launches = canvas_tail_phase(model, vga, res, hd, res_hd)
     flagship_launches = flagship_phase(card)
     holdout_launches, fddb_synth_launches = holdout_phase(card)
     bench_launches = bench_phase(card, model, vga)
@@ -2465,9 +2283,6 @@ def main(argv=None) -> int:
         "launches_trained_model": trained_launches[0],
         # detect_batch(mesh=) per rank (phase 20), counts set to 0 just before
         "launches_mesh": mesh_launches,
-        # each canvas-tail route of phase 21 and its gather twin, counts set
-        # to 0 just before each
-        "launches_canvas_tail": canvas_launches,
         # the scene evaluation of the flagship model (phase 22), 3 batches of
         # 8, counts set to 0 just before
         "launches_flagship_scenes": flagship_launches,

@@ -24,14 +24,6 @@ an image; on the CPU, and for T == 0 models, `_run_batch` runs the plain
 tail.  The C++-semantics detector (cascador.py) drives both paths through
 explicit window ladders (`Detector._plan_windows`) and `_run_batch`.
 Entry points run on CUDA unless the caller passes device="cpu".
-
-The fused path's tail is chosen at every call, as in the JAX package:
-JDA_TPU_TAIL other than "gather" runs the scales of windows up to 256 px
-through the canvas tail (ops/mxu_tail.py) in buckets of 32, 64, 128 and
-256, and larger ones through the gather tail; JDA_TPU_BUCKETS other than
-"none" does the same for banded plans.  JDA_TPU_CANVAS ("rows" or
-"gather") names how the JAX package builds canvases; here both build the
-same ones (ops/mxu_tail.py).  Every mode gives the same results.
 """
 
 from __future__ import annotations
@@ -52,7 +44,7 @@ from jda_tpu_torch.ops import fused as F
 from jda_tpu_torch.ops import nms as NMS
 from jda_tpu_torch.ops import resize as R
 from jda_tpu_torch.ops import tail as TK
-from jda_tpu_torch.utils import block, dp_mesh, log, resolve_device, same_device
+from jda_tpu_torch.utils import block, dp_mesh, resolve_device, same_device
 
 
 @dataclasses.dataclass
@@ -255,40 +247,6 @@ class Detector:
 
     # -- plans ---------------------------------------------------------------
 
-    def _mxu_tail_enabled(self) -> bool:
-        """JDA_TPU_TAIL other than 'gather' runs the canvas tail (ops/
-        mxu_tail.py) on the scales that fit a canvas bucket."""
-        return os.environ.get("JDA_TPU_TAIL", "gather") != "gather"
-
-    def _canvas_mode(self) -> str:
-        """JDA_TPU_CANVAS: 'rows' (the default) or 'gather', the JAX
-        package's two canvas builds.  Both build the same canvases here
-        (mxu_tail.canvas_rows).  An unknown value is logged and read as
-        'rows', as the JAX package does."""
-        mode = os.environ.get("JDA_TPU_CANVAS", "rows")
-        if mode not in ("gather", "rows"):
-            log(f"JDA_TPU_CANVAS={mode} is not a supported mode (gather | rows); "
-                "using rows")
-            return "rows"
-        return mode
-
-    def _groups(self, plan) -> Optional[Tuple[dict, ...]]:
-        """The scale groups of a plan's tail under the current environment
-        (F.group_scales), or None for the single gather pass.  Banded plans
-        take the canvas buckets under JDA_TPU_BUCKETS other than 'none',
-        other plans under JDA_TPU_TAIL other than 'gather'.  The canvas
-        mode is read where a group builds canvases."""
-        if plan["origins"] is not None:
-            canvas = os.environ.get("JDA_TPU_BUCKETS", "none") != "none"
-        else:
-            canvas = self._mxu_tail_enabled()
-        if not canvas:
-            return None
-        groups = F.group_scales(plan["scales"])
-        if any(g["S"] is not None for g in groups):
-            self._canvas_mode()
-        return groups
-
     def _plan(self, Hc, Wc, scale, min_size, max_size_c) -> dict:
         """Window ladder and per-scale dense tables for one canonical
         geometry (jdaDetect semantics, truncation), cached."""
@@ -432,7 +390,6 @@ class Detector:
             s0_lbf=True,
             prepared=self._dense_tables(plan),
             origins=plan["origins"],
-            groups=self._groups(plan),
             tail=self._tail_tables(),
         )
 

@@ -17,7 +17,7 @@ launches kernels per cart and per op.  Two callers:
 
 The kernel replaces no TPU kernel: the JAX package's tail is XLA.  The
 plain functions stay as its counterpart, bit-equal, and serve the CPU and
-the paths the kernel does not take (the canvas tail, `_run_batch`'s other
+the paths the kernel does not take (T == 1 models, `_run_batch`'s other
 callers, `cascade_full`, training).  `walk` raises on the CPU.  The tables
 (`pack_tables`) depend on the model alone: a caller keeps them.  The
 library is built at its first load together with `dense0`

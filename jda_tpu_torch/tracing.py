@@ -48,7 +48,7 @@ Spans of the detection path (name: where):
 
 Where the tail kernel runs, `stage`, `descend`, `score_chain` and
 `regression` do not open for its lanes: they are the plain tail's (the
-CPU, the canvas groups, `_run_batch`, training).
+CPU, T == 1 models, `_run_batch`, training).
 
 Counters: `plan.builds` (plans built on a cache miss), `tail.lane_carts`
 (lanes x carts the plain tail's descent computed), `tail_kernel.launches`

@@ -8,10 +8,7 @@ frames (`make_image` from seeds 31, 32, ...), scale 1.25, min_size 24,
 max_size -1, th -0.5: latency at B=1 through `detect_batch` (one warm
 call, then the median of 5), then the stream through `detect_stream` at
 B1080_BATCH (2) over B1080_FRAMES (4 * B1080_BATCH) frames on a second
-detector (a warm pass over two chunks, then one timed pass).  The
-detector reads JDA_TPU_TAIL and JDA_TPU_CANVAS as it always does; the
-line reports the tail and canvas mode it selected (bench_torch.selected:
-the canvas is None under the gather tail).
+detector (a warm pass over two chunks, then one timed pass).
 
 Prints one JSON line.  `--device` defaults to the card and raises without
 one; `--device cpu` runs the plain PyTorch path.
@@ -58,7 +55,6 @@ def run(model, frames, batch, device):
         "frames": len(frames),
         "windows_per_frame": windows,
         "windows_per_sec_stream": round(windows * len(frames) / stream_s, 1),
-        **B.selected(det),
     }
 
 

@@ -1,14 +1,12 @@
 """The port's measurement entry points on the CPU (bench_torch.py,
-scripts/bench_1080p_torch.py, scripts/tune_detect_torch.py) against the
-JAX package's (bench.py, scripts/bench_1080p.py, scripts/tune_detect.py):
-the same images, workload, keys and matrices; a small run's detections
-against jda_tpu and the native C library."""
+scripts/bench_1080p_torch.py) against the JAX package's (bench.py,
+scripts/bench_1080p.py): the same images, workload and keys; a small
+run's detections against jda_tpu and the native C library."""
 
 import ast
 import dataclasses
 import json
 import os
-import subprocess
 import sys
 
 import numpy as np
@@ -26,8 +24,6 @@ from jda_tpu_torch import native, oracle  # noqa: E402
 from jda_tpu_torch import params as TP  # noqa: E402
 from jda_tpu_torch.detect import Detector  # noqa: E402
 from scripts import bench_1080p_torch as B1080  # noqa: E402
-from scripts import tune_detect as JT  # noqa: E402
-from scripts import tune_detect_torch as TT  # noqa: E402
 
 
 def _literal(node):
@@ -78,7 +74,7 @@ def test_workload_equals_bench_py():
     assert knobs == j["env"] == {"BENCH_BATCH": "'16'", "BENCH_CHUNKS": "'4'",
                                  "BENCH_REPS": "'3'", "BENCH_1080": "'1'",
                                  "BENCH_1080_BATCH": "'4'"}
-    assert set(t["env"]) - set(knobs) == {"JDA_TPU_TAIL"}  # selected()
+    assert set(t["env"]) == set(knobs)
     assert BT.KW == j["kw"]
     assert BT.MODEL == j["model"]
     assert [(BT.H, BT.W), (BT.HD_H, BT.HD_W)] == j["shapes"]
@@ -120,9 +116,8 @@ def small():
 def test_small_run_prints_bench_keys(small):
     line, res, nat, jres = small
     keys = _workload(os.path.join(ROOT, "bench.py"))["keys"] - {"p1080_error"}
-    assert set(line) == keys | {"baseline", "batch", "tail", "canvas"}
-    assert (line["baseline"], line["batch"], line["tail"], line["canvas"]) == (
-        "native", 2, "gather", None)
+    assert set(line) == keys | {"baseline", "batch"}
+    assert (line["baseline"], line["batch"]) == ("native", 2)
     assert line["vs_baseline"] is not None and line["vs_baseline"] > 0
     assert len(line["runs_images_per_sec"]) == len(line["ref_runs_images_per_sec"]) == 1
     assert line["windows_per_image"] == BT.windows_per_image(96, 128)
@@ -151,46 +146,16 @@ def test_one_thread_restores_the_count():
 
 
 def test_bench_1080p_small_run_keys():
-    """bench_1080p_torch.run: scripts/bench_1080p.py's keys, the tail and
-    canvas mode the detector selected."""
+    """bench_1080p_torch.run: scripts/bench_1080p.py's keys but the tail
+    and canvas mode, which the port does not choose among."""
     m = TP.synthetic_model(T=2, K=40, landmark_n=9, seed=7,
                            drop_profile=TP.realistic_drop_profile(2, 40))
     frames = [BT.make_image(120, 176, seed=31 + i) for i in range(4)]
     line = B1080.run(m, frames, 2, torch.device("cpu"))
     keys = _workload(os.path.join(ROOT, "scripts", "bench_1080p.py"))["keys"]
-    assert set(line) == keys
-    assert (line["tail"], line["canvas"], line["frames"], line["batch"]) == ("gather", None, 4, 2)
+    assert set(line) == keys - {"tail", "canvas"}
+    assert (line["frames"], line["batch"]) == (4, 2)
     assert len(line["lat_runs"]) == 5
-
-
-def test_tune_matrices_equal_the_jax_script():
-    assert TT.QUICK == JT.QUICK
-    assert TT.FULL == JT.FULL
-
-
-@pytest.mark.parametrize("ok", [False, True], ids=["all_failed", "one_ran"])
-def test_tune_reports_failures(monkeypatch, capsys, ok):
-    """A failed configuration is printed as FAILED with its tail; the
-    script exits non-zero only when every one failed."""
-    calls = []
-
-    def fake_run(cmd, env, **kw):
-        calls.append((cmd, env))
-        good = ok and env.get("JDA_TPU_CANVAS") == "rows"
-        out = json.dumps({"value": 1.5, "vs_baseline": 2.0, "runs_images_per_sec": [1.5],
-                          "tail": "gather", "canvas": None, "batch": 16})
-        return subprocess.CompletedProcess(cmd, 0 if good else 1, out if good else "",
-                                           "" if good else "Traceback\nRuntimeError: boom")
-
-    monkeypatch.setattr(TT.subprocess, "run", fake_run)
-    rc = TT.main(["quick", "--device", "cpu"])
-    text = capsys.readouterr().out
-    assert rc == (0 if ok else 1)
-    assert text.count("FAILED") == (2 if ok else 3) and "RuntimeError: boom" in text
-    assert all(c[0][1].endswith("bench_torch.py") and c[0][2:] == ["--device", "cpu"]
-               and c[1]["BENCH_REPS"] == "2" for c in calls)
-    assert len(calls) == 3 and ("best: mxu canvas=rows B=8" in text) == ok
-    assert ("(tail gather, canvas None, B=16)" in text) == ok
 
 
 @pytest.mark.parametrize("script", ["bench", "bench_1080p"])

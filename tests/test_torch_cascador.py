@@ -130,24 +130,6 @@ def test_detect_batch_routes_per_image_when_not_fused(pair, monkeypatch):
             assert_same(fused[m][i], r, f"method {m}, image {i}, JDA_TPU_FUSED=0")
 
 
-def test_buckets_mode_is_read_at_every_call(pair, monkeypatch):
-    """JDA_TPU_BUCKETS other than 'none' runs method 0's banded canvases
-    through the canvas buckets (tests/test_torch_mxu_tail.py), read at
-    every call, also where the plan was cached under 'none' (the single
-    gather pass): the same raw results, every band in the S=32 bucket."""
-    tdet = pair[2][0][1]
-    grays = [_image(3, 64, 64)]
-    none = tdet._detect_m0_raw_batch(grays, canon=(64, 65))
-    plan = tdet._m0_plan(64, 65)
-    assert tdet.det._groups(plan) is None
-    monkeypatch.setenv("JDA_TPU_BUCKETS", "default")
-    assert [g["S"] for g in tdet.det._groups(plan)] == [32]
-    got = tdet._detect_m0_raw_batch(grays, canon=(64, 65))
-    for a, b in zip(none[0][:3], got[0][:3]):
-        np.testing.assert_array_equal(a, b)
-    assert dataclasses.astuple(none[0][3]) == dataclasses.astuple(got[0][3])
-
-
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_nms_cpp_matches_jax_with_ties(seed):
     rng = np.random.default_rng(seed)

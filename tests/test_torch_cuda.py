@@ -640,58 +640,6 @@ def test_truncation_synth_on_card(cuda, multi):
             np.testing.assert_array_equal(flats[0][sid * m.P + p, : o * o].reshape(o, o), host)
 
 
-def test_canvas_tail_on_card_matches_cpu(cuda, cpu_det, monkeypatch):
-    """JDA_TPU_TAIL=mxu on the card, in both canvas modes: the canvases and
-    the detector bit-equal to the CPU, two `dense0_filter` launches per
-    fused batch; the ladder reaches the gather group (win >= 257) and the
-    last image's corner."""
-    from jda_tpu_torch.ops import mxu_tail as MT
-
-    rng = np.random.default_rng(9)
-    imgs = torch.from_numpy(rng.integers(0, 256, (2, 64, 96)).astype(np.uint8))
-    b = torch.tensor([0, 1, 1, 1])
-    x, y = torch.tensor([3, 72, 64, 40]), torch.tensor([5, 40, 32, 8])
-    want = MT.canvas_rows(imgs.reshape(-1), b, x, y, 64, 96, 32)
-    got = MT.canvas_rows(imgs.reshape(-1).to(cuda), b.to(cuda), x.to(cuda), y.to(cuda),
-                         64, 96, 32)
-    assert torch.equal(want[:, :24, :24], got.cpu()[:, :24, :24])
-
-    monkeypatch.setenv("JDA_TPU_TAIL", "mxu")
-    grays = [_img(300, 320, 1), _img(280, 300, 2)]
-    gdet = jt.Detector(cpu_det.params)
-    assert [g["S"] for g in gdet._groups(gdet._plan(300, 320, 1.25, 110, 300))] == [
-        128, 256, None]
-    want = cpu_det.detect_batch(grays, th=-5.0, min_size=110)
-    assert sum(r.n for r in want) > 0, "degenerate fixture"
-    for canvas in ("rows", "gather"):
-        monkeypatch.setenv("JDA_TPU_CANVAS", canvas)
-        with tracing.counting() as c:
-            got = gdet.detect_batch(grays, th=-5.0, min_size=110)
-        torch.cuda.synchronize()
-        assert _launches(c) == (2, 0)
-        for a, c in zip(want, got):
-            np.testing.assert_array_equal(a.bboxes, c.bboxes)
-            np.testing.assert_array_equal(a.scores, c.scores)
-            np.testing.assert_array_equal(a.shapes, c.shapes)
-
-
-def test_cpp_canvas_buckets_on_card_match_cpu(cuda, cpp_model, monkeypatch):
-    """Method 0's banded canvases under JDA_TPU_BUCKETS=default and method 1
-    at B=2 under JDA_TPU_TAIL=mxu on the card, bit-equal to the CPU."""
-    from jda_tpu_torch.cascador import CppDetector
-
-    monkeypatch.setenv("JDA_TPU_BUCKETS", "default")
-    monkeypatch.setenv("JDA_TPU_TAIL", "mxu")
-    grays = [_img(120, 160, 23), _img(96, 128, 24)]
-    for method in (0, 1):
-        cfg = jt.Config(fddb_detect_method=method, **CPP_CFG)
-        gdet, cdet = CppDetector(cpp_model, cfg), CppDetector(cpp_model, cfg, device="cpu")
-        want = cdet.detect_batch(grays)
-        assert sum(len(w[0]) for w in want) > 0, "degenerate fixture"
-        for a, b in zip(want, gdet.detect_batch(grays)):
-            _same_cpp(a, b)
-
-
 # -- the survivor tail kernel (ops/tail.py, csrc/tail.cu) -------------------------
 
 RAW_FIELDS = ("sel", "score", "shape", "alive", "nvis", "counts", "nvis_img", "total_nvis")
@@ -714,11 +662,11 @@ def raw(monkeypatch):
     return calls
 
 
-def _tail_on_card(raw, on_cpu, on_card, gather_groups, canvas=False):
+def _tail_on_card(raw, on_cpu, on_card):
     """on_cpu() and on_card() through run_fused: every output field of every
-    call bit-equal; the card launches the tail kernel once per gather group
-    with survivors and, without canvas groups, opens no `score_chain` span.
-    Returns the outputs."""
+    call bit-equal; the card launches the tail kernel once per call with
+    stage-0 survivors and opens no `score_chain` span.  Returns the
+    outputs."""
     on_cpu()
     want = list(raw)
     raw.clear()
@@ -733,19 +681,13 @@ def _tail_on_card(raw, on_cpu, on_card, gather_groups, canvas=False):
     for w, g in zip(want, raw):
         for k in RAW_FIELDS:
             assert torch.equal(w[k], g[k]), k
-    launches = sum(min(int(w["counts"][i]), 1) for w in want for i in gather_groups(w))
+    launches = sum(min(int(w["counts"][0]), 1) for w in want)
     assert counters.get("tail_kernel.launches", 0) == launches
-    assert counters.get("tail_kernel.lanes", 0) == sum(
-        int(w["counts"][i]) for w in want for i in gather_groups(w))
+    assert counters.get("tail_kernel.lanes", 0) == sum(int(w["counts"][0]) for w in want)
     names = {s.name for s in spans}
-    if not canvas:
-        assert "score_chain" not in names and "tail.lane_carts" not in counters
+    assert "score_chain" not in names and "tail.lane_carts" not in counters
     assert ("tail" in names) == (launches > 0)
     return want
-
-
-def _first(w):
-    return [0]  # the single gather pass: its stage-0 count comes first
 
 
 def test_tail_kernel_bench_model_split_truncation(cuda, raw):
@@ -756,7 +698,7 @@ def test_tail_kernel_bench_model_split_truncation(cuda, raw):
     cdet, gdet = jt.Detector(m, device="cpu"), jt.Detector(m)
     grays = [_img(240, 320, 41), _img(200, 300, 42)]
     want = _tail_on_card(raw, lambda: cdet.detect_batch(grays, th=-5.0),
-                         lambda: gdet.detect_batch(grays, th=-5.0), _first)
+                         lambda: gdet.detect_batch(grays, th=-5.0))
     assert len(want[0]["counts"]) == 1 + 4 + 3 and int(want[0]["counts"][-1]) > 0
 
 
@@ -778,7 +720,7 @@ def test_tail_kernel_flagship_rounding(cuda, raw, method):
     cdet, gdet = CppDetector(m, cfg, device="cpu"), CppDetector(m, cfg)
     grays = [make_scene(240, 320, 61 + i, faces=1)[0] for i in range(2)]
     want = _tail_on_card(raw, lambda: cdet.detect_batch(grays),
-                         lambda: gdet.detect_batch(grays), _first)
+                         lambda: gdet.detect_batch(grays))
     assert int(want[0]["counts"][-1]) > 0, "degenerate fixture"
 
 
@@ -821,23 +763,9 @@ def test_tail_kernel_when_every_lane_dies_in_stage_one(cuda, raw):
     cdet, gdet = jt.Detector(m, device="cpu"), jt.Detector(m)
     grays = [_img(96, 128, 3), _img(80, 112, 4)]
     want = _tail_on_card(raw, lambda: cdet.detect_batch(grays, th=-5.0),
-                         lambda: gdet.detect_batch(grays, th=-5.0), _first)
+                         lambda: gdet.detect_batch(grays, th=-5.0))
     counts = want[0]["counts"].tolist()
     assert counts[0] > 0 and counts[1:] == [0] * 5 and want[0]["sel"].numel() == 0
-
-
-def test_tail_kernel_gather_group_of_grouped_pass(cuda, cpu_det, raw, monkeypatch):
-    """JDA_TPU_TAIL=mxu: the canvas groups take the plain tail on the card,
-    the gather group (win >= 257, no split) the kernel."""
-    monkeypatch.setenv("JDA_TPU_TAIL", "mxu")
-    gdet = jt.Detector(cpu_det.params)
-    grays = [_img(300, 320, 1), _img(280, 300, 2)]
-    T = cpu_det.T
-    want = _tail_on_card(raw, lambda: cpu_det.detect_batch(grays, th=-5.0, min_size=110),
-                         lambda: gdet.detect_batch(grays, th=-5.0, min_size=110),
-                         lambda w: [2 * (T - 1)],  # groups 128, 256, then the gather group
-                         canvas=True)
-    assert len(want[0]["counts"]) == 3 * (T - 1) and int(want[0]["counts"][4]) > 0
 
 
 # -- the tail kernel's multi-scale walk (Detector._walk_levels) ------------------

@@ -311,24 +311,3 @@ def test_unported_branches_raise(pair, monkeypatch):
     # DeviceMesh is refused
     with pytest.raises(TypeError, match="DeviceMesh"):
         tdet.detect_batch(grays, mesh=object())
-
-
-@pytest.mark.parametrize("tail", ["mxu", "canvas"])
-def test_tail_mode_is_read_at_every_call(pair, monkeypatch, tail):
-    """JDA_TPU_TAIL other than 'gather' runs the canvas tail
-    (tests/test_torch_mxu_tail.py), read at every call as the JAX package
-    reads it, also where the plan was cached under 'gather': the same
-    results, with the grouped pass's compaction points (per canvas group,
-    after the dense filter and after each stage but the last); 'gather'
-    runs the single gather pass again."""
-    m, grays, jres, jraw, tdet, imgs, dims = pair
-    tdet.detect_batch(grays[:1], th=TH)  # the plan is cached
-    v1 = len(tdet.last_stats["counts"])
-    monkeypatch.setenv("JDA_TPU_TAIL", tail)
-    _same(tdet.detect_batch(grays[:1], th=TH)[0], jres[0])
-    groups = tdet._groups(tdet._plan(64, 96, 1.25, 24, 64))
-    assert [g["S"] for g in groups] == [32, 64]
-    assert len(tdet.last_stats["counts"]) == len(groups) * (m.T - 1) != v1
-    monkeypatch.setenv("JDA_TPU_TAIL", "gather")
-    _same(tdet.detect_batch(grays[:1], th=TH)[0], jres[0])
-    assert len(tdet.last_stats["counts"]) == v1

@@ -33,8 +33,9 @@ Phases, each fatal on failure:
      fused results of phases 3 and 5, one `dense0_image` call (two kernels)
      per image;
   9. a multi-scale model of the same width through Detector.detect
-     (pyramid, then the tail kernel's level walk of the whole ladder, one
-     launch an image) on 2 VGA images: the full ladder bit-equal to the
+     (the pyramid kernel, then the tail kernel's level walk of the whole
+     ladder, one launch of each an image, counted) on 2 VGA images: the
+     full ladder bit-equal to the
      port on the CPU (`_run_batch`), and against the
      native C library with the window pinned to 24 px, where every read of
      the C library stays inside its pyramid: identical boxes, scores within
@@ -166,6 +167,15 @@ Phases, each fatal on failure:
      rows from L2), a call's wall time and kernels with the kernel and
      with the plain tail.  `python3 chip_smoke.py 25` runs phases 1 and 25
      alone.
+ 26. (run after phase 25, in a process of its own) the o/h/q pyramid
+     kernel (`pyramid_levels`, csrc/pyramid.cu) on a VGA image and a 1080p
+     frame: bit-equal to the host pyramid_c + stack_pyramid and to its
+     plain twin on the card, one launch in Detector.detect of a multi-scale
+     model; its time (profiler, all of 20 launches, and CUDA events over
+     200 launches) beside its byte bound, the plain twin's time, the host
+     pyramid's and the detector's whole step (pinned upload and launch).
+     `python3 chip_smoke.py 26` runs phases 1 and 26 alone.  The kernel
+     table's launches an image are phase 9's count.
 
 The last lines are the card (nvidia-smi name and power limit), a
 {"kernels": [...]} JSON line, and {"ok": true, "device": {...}}.  Without a
@@ -1840,6 +1850,102 @@ def tail_phase(card):
     return row
 
 
+def pyramid_phase(card):
+    """Phase 26: the o/h/q pyramid kernel (`pyramid_levels`, ops/pyramid.py)
+    on a VGA image and a 1080p frame, against the host pyramid it replaced
+    and its plain twin on the card.  Returns the kernel table's row."""
+    import torch
+
+    import jda_tpu_torch as jt
+    from jda_tpu_torch import tracing
+    from jda_tpu_torch.ops import pyramid as PY
+    from jda_tpu_torch.ops import resize as R
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    # phase 9's model: its stage thresholds keep a few boxes, so NMS stays short
+    det = jt.Detector(jt.synthetic_model(T=5, K=540, landmark_n=27, seed=7, multi_scale=True,
+                                         drop_profile=jt.realistic_drop_profile(5, 540)))
+    row = {"name": "pyramid_levels", "route": "cuda", "source": "jda_tpu_torch/csrc/pyramid.cu",
+           "replaces": None, "library_ms": None, "sizes": {}}
+    for label, (H, W) in (("vga", (480, 640)), ("1080p", (1080, 1920))):
+        img = make_image(H, W, seed=800 + H)
+        t0 = time.perf_counter()
+        want, _, _ = R.stack_pyramid(R.pyramid_c(img))
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        lay = PY.layout(H, W)
+        flat = torch.empty(lay.F, dtype=torch.uint8, device=dev)
+        flat[: H * W] = torch.from_numpy(img).reshape(-1).to(dev)
+        with tracing.counting() as c:
+            PY.fill_levels(flat, lay)
+        plain = flat.clone()
+        plain[H * W:] = 0
+        PY.fill_levels_reference(plain, lay)
+        torch.cuda.synchronize()
+        if not np.array_equal(flat.cpu().numpy(), want) or not torch.equal(plain, flat):
+            raise AssertionError(f"[26] {label}: the kernel's pyramid differs from pyramid_c")
+        if c.get("pyramid_kernel.launches") != 1:
+            raise AssertionError(f"[26] {label}: {c.get('pyramid_kernel.launches')} launches")
+        # 20 launches under the profiler, every one of them recorded: the
+        # profiler now and then drops a launch's record (the launch counter
+        # says it ran), so a profile missing one is made again, twice at most
+        for attempt in range(3):
+            with tracing.counting() as c:
+                _, ops = device_kernels(lambda: [PY.fill_levels(flat, lay) for _ in range(20)])
+            if c.get("pyramid_kernel.launches") != 20:
+                raise AssertionError(f"[26] {label}: {c} for 20 launches")
+            kern = [d for n_, d in ops if "levels_kernel" in n_]
+            if len(kern) == 20 and len(ops) == 20:
+                break
+            log(f"[26] {label}: the profiler recorded {len(kern)} pyramid kernels of "
+                f"{len(ops)} device kernels for 20 launches: {ops[:2]}")
+        else:
+            raise AssertionError(f"[26] {label}: no profile of 20 launches recorded all 20")
+        ms = cuda_ms(lambda: PY.fill_levels(flat, lay), 200)
+        # the main path's launches: the detector's whole call on the image
+        with tracing.counting() as c:
+            det.detect(img, **BENCH_KW)
+            torch.cuda.synchronize()
+        launches = c.get("pyramid_kernel.launches", 0)
+        if launches != 1:
+            raise AssertionError(f"[26] {label}: detect launched the pyramid {launches} times")
+        plain_ms = cuda_ms(lambda: PY.fill_levels_reference(plain, lay), 5)
+        plan = det._plan(H, W, 1.25, 24, min(H, W))
+        step_ms = wall_ms(lambda: det._pyramid(img, plan), 21)
+        t_bytes = 1e3 * lay.F / HBM_BYTES_PER_S  # o read once, h and q written once
+        cell = dict(kernel_ms=1e3 * statistics.median(kern), ms=ms, bound_ms=t_bytes,
+                    bound_by="bytes", plain_ms=plain_ms, host_ms=host_ms, step_ms=step_ms,
+                    F=lay.F, launches=launches)
+        row["sizes"][label] = cell
+        log(f"[26] {label} {H}x{W}: pyramid_levels {cell['kernel_ms'] * 1e3:.2f} us "
+            f"(profiler, median of 20 launches; {ms * 1e3:.2f} us a launch back "
+            f"to back), bound {t_bytes * 1e3:.3f} us "
+            f"({lay.F} bytes at {HBM_BYTES_PER_S:.3g} B/s), plain twin on the "
+            f"card {plain_ms:.3f} ms, host pyramid_c + stack {host_ms:.2f} ms; the detector's "
+            f"step (pinned upload + launch, synchronised) {step_ms:.3f} ms; bit-equal to "
+            f"pyramid_c and to the plain twin, {launches} launch in Detector.detect ({card})")
+    row["launches_per_image"] = statistics.mean(c["launches"] for c in row["sizes"].values())
+    log(f"[26] done in {time.perf_counter() - t_phase:.1f} s")
+    return row
+
+
+def pyramid_phase_apart(card):
+    """Phase 26 in a process of its own (`chip_smoke.py 26`), where the
+    profiler has recorded nothing before it.  Returns its kernel row."""
+    out = subprocess.run([sys.executable, os.path.abspath(__file__), "26"],
+                         capture_output=True, text=True, timeout=600)
+    rows = []
+    for line in out.stdout.splitlines():
+        if line.startswith("[26]"):
+            log(line)
+        elif line.startswith('{"kernels"'):
+            rows = json.loads(line)["kernels"]
+    if out.returncode != 0 or len(rows) != 1:
+        raise AssertionError(f"[26] chip_smoke.py 26 failed, rc {out.returncode}:\n"
+                             f"{out.stdout[-4000:]}\n{out.stderr[-4000:]}")
+    return rows[0]
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -1865,8 +1971,8 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    _build.build_all(["dense0", "dense0_image", "tail"])
-    log(f"[1] built dense0, dense0_image and tail in {time.perf_counter() - t0:.1f} s")
+    _build.build_all(["dense0", "dense0_image", "tail", "pyramid"])
+    log(f"[1] built dense0, dense0_image, tail and pyramid in {time.perf_counter() - t0:.1f} s")
     for name, text in _build.build_logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
@@ -1876,6 +1982,12 @@ def main(argv=None) -> int:
         log(card)
         log(json.dumps({"kernels": [row]}))
         log(json.dumps({"ok": True, "phases": [1, 25]}))
+        return 0
+    if argv and list(argv) == ["26"]:  # the pyramid kernel's phase alone
+        row = pyramid_phase(card)
+        log(card)
+        log(json.dumps({"kernels": [row]}))
+        log(json.dumps({"ok": True, "phases": [1, 26]}))
         return 0
 
     model = jt.synthetic_model(
@@ -1979,6 +2091,9 @@ def main(argv=None) -> int:
     # (here, before the later phases: after phases 22-24 the profiler recorded no
     # device events in this process)
     tail_row = tail_phase(card)
+    # -- 26. the o/h/q pyramid kernel against pyramid_c -----------------------------
+    # (in a process of its own: late in a long process the profiler drops events)
+    pyramid_row = pyramid_phase_apart(card)
 
     # -- 4. against the native C library ------------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -2173,15 +2288,18 @@ def main(argv=None) -> int:
         pinned = dict(scale=1.25, min_size=24, max_size=24, th=-5.0)
         safe_y = 480 - 82 - 24
         n_safe = 0
+        ms_pyramid_launches = []
         for i in range(2):
             t0 = time.perf_counter()
             with tracing.counting() as c:
                 r = ms_det.detect(vga[i], **BENCH_KW)
                 torch.cuda.synchronize()
             dt = time.perf_counter() - t0
-            if c.get("tail_kernel.launches") != 1 or "run_batch.calls" in c:
-                raise AssertionError(f"multi-scale detect: {c} (one tail kernel launch an "
-                                     "image expected, no _run_batch)")
+            if (c.get("tail_kernel.launches") != 1 or c.get("pyramid_kernel.launches") != 1
+                    or "run_batch.calls" in c):
+                raise AssertionError(f"multi-scale detect: {c} (one pyramid and one tail "
+                                     "kernel launch an image expected, no _run_batch)")
+            ms_pyramid_launches.append(c["pyramid_kernel.launches"])
             same_result(ms_cpu.detect(vga[i], **BENCH_KW), r,
                         f"multi-scale detect on the card differs from the CPU, image {i}")
             rp = ms_det.detect(vga[i], **pinned)
@@ -2202,6 +2320,8 @@ def main(argv=None) -> int:
         ndet.close()
         if n_safe == 0:
             raise AssertionError("multi-scale: no box to compare with the C library")
+    # the kernel table's launches of the pyramid kernel: the main path's, counted here
+    pyramid_row["launches_per_image"] = statistics.mean(ms_pyramid_launches)
 
     # -- 10. dense0_image per image ---------------------------------------------------
     img0, hd0 = vga_img[0], hd_img[0]
@@ -2349,7 +2469,7 @@ def main(argv=None) -> int:
         "plain_ms_cpp_m1_image": cpp["m1_image"]["plain_ms"],
         "bound_ms_cpp_m1_image": cpp["m1_image"]["bound"][0],
         "bound_by_cpp_m1_image": cpp["m1_image"]["bound"][1],
-    }, tail_row], "cpp_img_s": cpp["rates"]}))
+    }, tail_row, pyramid_row], "cpp_img_s": cpp["rates"]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

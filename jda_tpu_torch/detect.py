@@ -8,7 +8,8 @@ reference C API `jdaDetect` (c/jda.c:318-480):
   * single-scale models read only the origin image, at coordinates
     truncated toward zero;
   * multi-scale models also read the half and quarter levels of the
-    o/h/q pyramid (ops/resize.py) through borrowed-memory patches
+    o/h/q pyramid (ops/pyramid.py: built on the detector's device, one
+    launch an image on a card) through borrowed-memory patches
     (window_geometry);
   * the shape starts at the mean shape; for single-scale models stage 0
     runs densely over every window (ops/dense0.py);
@@ -42,6 +43,7 @@ from jda_tpu_torch.ops import cascade as C
 from jda_tpu_torch.ops import dense0 as D0
 from jda_tpu_torch.ops import fused as F
 from jda_tpu_torch.ops import nms as NMS
+from jda_tpu_torch.ops import pyramid as PY
 from jda_tpu_torch.ops import resize as R
 from jda_tpu_torch.ops import tail as TK
 from jda_tpu_torch.utils import block, dp_mesh, resolve_device, same_device
@@ -327,20 +329,29 @@ class Detector:
             if self.device.type != "cuda":
                 host = torch.zeros((B, Hc, Wc), dtype=torch.uint8)
             else:
-                if self._pinned is None or tuple(self._pinned.shape) != (B, Hc, Wc):
-                    self._pinned = torch.empty((B, Hc, Wc), dtype=torch.uint8).pin_memory()
-                elif self._upload_done is not None:
-                    with tracing.span("upload.wait"):
-                        self._upload_done.synchronize()  # previous copy has read it
-                host = self._pinned
+                host = self._staging((B, Hc, Wc))
                 host.zero_()
             for i, g in enumerate(grays):
                 host[i, : g.shape[0], : g.shape[1]] = torch.from_numpy(g)
             imgs = host.to(self.device, non_blocking=True)
-            if self.device.type == "cuda":
-                self._upload_done = torch.cuda.Event()
-                self._upload_done.record()
+            self._staged()
             return imgs, dims.to(self.device, non_blocking=True)
+
+    def _staging(self, shape) -> torch.Tensor:
+        """The reused pinned host buffer of `shape` (made anew for another
+        shape), once the previous copy from it has read it."""
+        if self._pinned is None or tuple(self._pinned.shape) != tuple(shape):
+            self._pinned = torch.empty(shape, dtype=torch.uint8).pin_memory()
+        elif self._upload_done is not None:
+            with tracing.span("upload.wait"):
+                self._upload_done.synchronize()  # previous copy has read it
+        return self._pinned
+
+    def _staged(self) -> None:
+        """Mark the copy just enqueued from the pinned buffer (CUDA only)."""
+        if self.device.type == "cuda":
+            self._upload_done = torch.cuda.Event()
+            self._upload_done.record()
 
     def _dense_tables(self, plan: dict) -> Optional[D0.ImageTables]:
         """The kernels' tables of a plan (ops/dense0.prepare_image), checked
@@ -538,23 +549,35 @@ class Detector:
             carried = {k: state[k][keep] for k in ("shape", "score", "nvis")}
         return host()
 
+    def _pyramid(self, gray: np.ndarray, plan: dict):
+        """A multi-scale model's o/h/q levels of one image on the detector's
+        device (ops/pyramid.py): the image alone goes into the head of a
+        buffer of exactly the plan's pyramid length, and h and q are built
+        behind it there (on CUDA one `pyramid_levels` launch, the image
+        staged in the reused pinned buffer and copied with
+        non_blocking=True).  Returns (flat, offsets, strides), as
+        `stack_pyramid(pyramid_c(gray))` gives them."""
+        H, W = gray.shape
+        if "pyramid" not in plan:
+            plan["pyramid"] = PY.layout(H, W)
+        lay = plan["pyramid"]
+        src = torch.from_numpy(np.ascontiguousarray(gray))
+        if self.device.type == "cuda":
+            src = self._staging((H, W)).copy_(src)
+        flat = torch.empty(lay.F, dtype=torch.uint8, device=self.device)
+        flat[: H * W].view(H, W).copy_(src, non_blocking=True)
+        self._staged()
+        PY.fill_levels(flat, lay)
+        return flat, lay.offsets, lay.strides
+
     def _detect_unfused(
         self, gray, scale, min_size, max_size, th, nms_overlap, batch
     ) -> DetectionResult:
-        """One image through the host-built pyramid and ladder: the dense
-        filter plus cascade_full on the survivors (single-scale models),
-        the tail kernel's level walk (multi-scale models with T > 0 on a
-        CUDA device), or _run_batch (the rest)."""
+        """One image through its pyramid and ladder: the dense filter plus
+        cascade_full on the survivors (single-scale models), the tail
+        kernel's level walk (multi-scale models with T > 0 on a CUDA
+        device), or _run_batch (the rest)."""
         img_h, img_w = gray.shape
-        with tracing.span("pyramid"):
-            if self.single_scale:
-                # single-scale models never read the half/quarter levels
-                levels = (gray, np.zeros((1, 1), np.uint8), np.zeros((1, 1), np.uint8))
-            else:
-                levels = R.pyramid_c(gray)
-            flat, offsets, strides = R.stack_pyramid(levels)
-            flat_dev = torch.from_numpy(flat).to(self.device)
-
         min_size = max(min_size, 24)
         if max_size <= 0:
             max_size = min(img_w, img_h)
@@ -564,6 +587,14 @@ class Detector:
         L2 = self.params.landmark_dim
         if n == 0:
             return _empty(self.params.landmark_n)
+        with tracing.span("pyramid"):
+            if self.single_scale:
+                # single-scale models never read the half/quarter levels
+                flat, offsets, strides = R.stack_pyramid(
+                    (gray, np.zeros((1, 1), np.uint8), np.zeros((1, 1), np.uint8)))
+                flat_dev = torch.from_numpy(flat).to(self.device)
+            else:
+                flat_dev, offsets, strides = self._pyramid(gray, plan)
 
         if self.single_scale and self.T > 0:
             # stage-0 dead windows are done; every survivor runs the full

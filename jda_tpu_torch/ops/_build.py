@@ -10,9 +10,9 @@ The library name carries a hash of its source and of every header
 (`csrc/*.cuh`) beside it, so an edited source or header builds anew and a
 stale library is never loaded.  Builds happen at first use,
 never at import.  `build_all` starts one nvcc per source, all at once;
-the sources the fused path loads at its first call (`BUILT_TOGETHER`) are
-built together at the first load of either.  The loaded libraries are the
-package's only module-level state.
+the sources one detection path loads at its first call (a group of
+`BUILT_TOGETHER`) are built together at the first load of any of them.
+The loaded libraries are the package's only module-level state.
 """
 
 from __future__ import annotations
@@ -33,8 +33,10 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# the dense stage-0 filter and the survivor tail, both loaded by a fused call
-BUILT_TOGETHER = ("dense0", "tail")
+# the sources each detection path loads: the dense stage-0 filter and the
+# survivor tail (a fused call), the o/h/q pyramid and the tail's level walk
+# (a multi-scale model's non-fused call, which loads the pyramid first)
+BUILT_TOGETHER = (("dense0", "tail"), ("pyramid", "tail"))
 
 _libs: Dict[str, ctypes.CDLL] = {}
 build_logs: Dict[str, str] = {}
@@ -105,11 +107,12 @@ def build_all(names: Iterable[str]) -> Dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, built first if needed (with
-    the rest of BUILT_TOGETHER where it belongs there)."""
-    lib = _libs.get(name)
-    if lib is None:
-        together = BUILT_TOGETHER if name in BUILT_TOGETHER else (name,)
-        lib = ctypes.CDLL(build_all(together)[name])
-        _libs[name] = lib
-    return lib
+    """The loaded library of csrc/<name>.cu, built first if needed with
+    the rest of the first group of BUILT_TOGETHER that holds it, and the
+    whole group loaded."""
+    if name not in _libs:
+        group = next((g for g in BUILT_TOGETHER if name in g), (name,))
+        for n, path in build_all(group).items():
+            if n not in _libs:
+                _libs[n] = ctypes.CDLL(path)
+    return _libs[name]

@@ -26,7 +26,8 @@ Spans of the detection path (name: where):
                 nested public call opens none
     plan        the window ladder and its tables (cached)
     upload      images to the device;  upload.wait: the wait for the
-                previous copy to have read the pinned buffer
+                previous copy to have read the pinned buffer (inside
+                `upload` or `pyramid`)
     dense0      the dense stage-0 filter's host checks and launches
     tail        the survivor tail kernel's host checks and launch (B; one
                 per gather group, and one per image of a multi-scale model
@@ -39,8 +40,12 @@ Spans of the detection path (name: where):
     harvest     the host post-pass of a batch;  harvest.wait: its first
                 device-to-host read, which waits for the tail to finish
     nms         non-maximum suppression (with the C++ route's relocation)
-    pyramid     the non-fused path's o/h/q levels of one image (trivial
-                for a single-scale model), stacked and uploaded
+    pyramid     the non-fused path's o/h/q levels of one image: for a
+                multi-scale model the image's upload (alone, through the
+                pinned buffer on a card) and the launch that builds h and
+                q behind it (ops/pyramid.py; the plain twin on the CPU);
+                for a single-scale model trivial 1x1 levels, stacked and
+                uploaded
     run_batch   one geometry batch of the non-fused path's plain route
                 for multi-scale and T == 0 models (`Detector._run_batch`:
                 the CPU, and T == 0 models on a card); the plain tail's
@@ -56,7 +61,8 @@ and `tail_kernel.lanes` (the tail kernel's launches and the lanes queued
 to it), `tail_kernel.ms_lanes` (the lanes queued to its multi-scale walk:
 the multi-scale windows of the non-fused path on a card),
 `dense0_filter.launches` and `dense0_image.launches` (kernels launched by
-the two stage-0 filters), `run_batch.calls` and `run_batch.windows` (the
+the two stage-0 filters), `pyramid_kernel.launches` (the o/h/q pyramid
+kernel's launches: one an image of a multi-scale model on a card), `run_batch.calls` and `run_batch.windows` (the
 non-fused branch's `_run_batch` calls and the windows entering them).  On
 the multi-scale cell, ms_lanes / (ms_lanes + run_batch.windows) is the
 share of windows the kernel walked.

@@ -900,3 +900,120 @@ def test_tail_wrapper_raises_when_build_missing(cuda, cpu_det, monkeypatch):
                 torch.zeros((1, 4), device=cuda),
                 torch.zeros((1, 4), dtype=torch.int32, device=cuda), None,
                 torch.zeros(1, dtype=torch.int32, device=cuda), rounding=False, split=0)
+
+
+# -- the o/h/q pyramid kernel (ops/pyramid.py, csrc/pyramid.cu) -------------------
+
+# odd widths and heights (25x37: the last word of the buffer is partial; 72x56:
+# q starts mid-word), VGA (the q ratio 479/240) and 1080p (h 1357 wide, q
+# mid-word, the buffer's end mid-word)
+PYRAMID_SWEEP = [(24, 24), (25, 37), (37, 25), (31, 53), (60, 80), (72, 56),
+                 (480, 640), (1080, 1920)]
+
+
+@pytest.mark.parametrize("hw", PYRAMID_SWEEP, ids=["x".join(map(str, s)) for s in PYRAMID_SWEEP])
+def test_pyramid_kernel_is_pyramid_c(cuda, hw):
+    """One launch writes h and q bit-equal to the host pyramid and to the
+    plain twin on the card, and leaves o and nothing past F touched."""
+    from jda_tpu_torch.ops import pyramid as PY
+    from jda_tpu_torch.ops import resize as R
+
+    img = _img(*hw, hw[0] + hw[1])
+    want, offsets, strides = R.stack_pyramid(R.pyramid_c(img))
+    lay = PY.layout(*hw)
+    assert lay.F == want.shape[0]
+    guard = torch.full((lay.F + 8,), 77, dtype=torch.uint8, device=cuda)
+    flat = guard[: lay.F]
+    flat[: hw[0] * hw[1]] = torch.from_numpy(img).reshape(-1).to(cuda)
+    with tracing.counting() as c:
+        PY.fill_levels(flat, lay)
+    plain = flat.clone()
+    plain[hw[0] * hw[1]:] = 0
+    PY.fill_levels_reference(plain, lay)
+    torch.cuda.synchronize()
+    assert c.get("pyramid_kernel.launches") == 1
+    assert np.array_equal(flat.cpu().numpy(), want)
+    assert torch.equal(plain, flat)
+    assert (guard[lay.F:] == 77).all()
+    # the detector's step: the image staged in pinned memory, then the launch
+    det = jt.Detector(jt.synthetic_model(T=1, K=8, landmark_n=9, seed=3, multi_scale=True))
+    with tracing.counting() as c:
+        got, got_offsets, got_strides = det._pyramid(img, {})
+    assert c.get("pyramid_kernel.launches") == 1
+    assert got.device.type == "cuda" and np.array_equal(got.cpu().numpy(), want)
+    assert np.array_equal(got_offsets, offsets) and np.array_equal(got_strides, strides)
+
+
+def test_pyramid_wrapper_rejects_bad_inputs(cuda):
+    from jda_tpu_torch.ops import pyramid as PY
+
+    lay = PY.layout(24, 30)
+    wide = torch.zeros(2 * lay.F, dtype=torch.uint8, device=cuda)
+    for bad in (wide[: lay.F].float(), wide[: lay.F][None], wide[::2]):
+        with pytest.raises(ValueError, match="contiguous uint8"):
+            PY.fill_levels(bad, lay)
+    with pytest.raises(ValueError, match="4-byte"):
+        PY.fill_levels(wide[1 : lay.F + 1], lay)
+    with pytest.raises(ValueError, match="bytes"):
+        PY.fill_levels(wide[: lay.F + 1], lay)
+
+
+def test_pyramid_kernel_launches_once_an_image(cuda):
+    """detect_stream of a multi-scale model on the card: one pyramid launch
+    and one `pyramid` span an image, the image uploaded alone."""
+    m = jt.synthetic_model(T=2, K=40, landmark_n=9, seed=5, multi_scale=True,
+                           reject_rate=0.05)
+    det = jt.Detector(m)
+    grays = [_img(60, 80, 31), _img(72, 56, 32), _img(60, 80, 33)]
+    det.detect_stream(grays, batch=2, th=-5.0)  # warm: the libraries
+    tracing.start()
+    try:
+        det.detect_stream(grays, batch=2, th=-5.0)
+        torch.cuda.synchronize()
+    finally:
+        tracing.stop()
+    spans, counters = tracing.drain()
+    assert counters.get("pyramid_kernel.launches") == len(grays)
+    assert [s.name for s in spans].count("pyramid") == len(grays)
+    assert counters.get("tail_kernel.launches") == len(grays)
+
+
+def test_ms_synth_geometry_on_card_matches_cpu_and_reference(cuda):
+    """The benchmark's multi-scale configuration (T=5, K=540, 27 landmarks,
+    its stored thresholds) through detect_stream on the card: the card
+    pyramid and the level walk give the CPU detector's answers and the
+    plain reference's (benchmark/reference_ms.py, on the card), on ladders
+    whose quarter patches read past the stacked buffer's end."""
+    import json
+
+    from benchmark import frozen as BF
+    from benchmark import model_ms as MM
+    from benchmark import reference as BR
+    from benchmark import reference_ms as RM
+    from jda_tpu_torch import params as P
+    from jda_tpu_torch.ops import pyramid as PY
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "benchmark/configs/jda_t5k540_ms_synth.json")) as f:
+        config = json.load(f)
+    m = MM.fields(config, root)
+    params = P.from_arrays(dict(m, stage_idx=config["T"] + 1, cart_idx=-1))
+    gdet, cdet = jt.Detector(params), jt.Detector(params, device="cpu")
+    kw = config["detect"]
+    found = 0
+    for hw in ((72, 56), (120, 160), (240, 320)):
+        pool = np.stack([BF.make_image(*hw, 10 * i + hw[0]) for i in range(4)])
+        x, y, win, _ = BR.ladder_windows(BR.c_api_ladder(*hw, 1.25, 24, -1))
+        lay = PY.layout(*hw)
+        last = (RM.patch_bases(x, y, lay.offsets, lay.strides)[:, 2]
+                + (win - 1) * lay.strides[2] + win - 1)
+        assert (last >= lay.F).any()
+        got = gdet.detect_stream(list(pool), batch=4, **kw)
+        want = cdet.detect_stream(list(pool), batch=4, **kw)
+        ref, _, _ = RM.answers(config, {}, m, pool, cuda)
+        for a, b, r in zip(got, want, ref):
+            for f, i in (("bboxes", 0), ("scores", 1), ("shapes", 2)):
+                np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+                np.testing.assert_array_equal(getattr(a, f), r[i])
+            found += a.n
+    assert found > 0, "degenerate fixture"

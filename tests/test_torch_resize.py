@@ -39,7 +39,8 @@ def test_resize_bit_equal(fn, size):
     np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("hw", [(64, 96), (57, 83), (120, 161)])
+# VGA: the q level's row ratio is the C library's float32 479 / 240
+@pytest.mark.parametrize("hw", [(64, 96), (57, 83), (120, 161), (480, 640), (1080, 1920)])
 def test_pyramid_and_stack_bit_equal(hw):
     img = _img(*hw, seed=7)
     jp, tp = JR.pyramid_c(img), TR.pyramid_c(img)

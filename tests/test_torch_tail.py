@@ -302,8 +302,11 @@ def test_cpu_detector_never_loads_a_library(monkeypatch):
 
 
 def test_fused_sources_are_built_together(monkeypatch):
-    """The first load of `dense0` or `tail` builds both (one nvcc each, at
-    once); another source is built alone."""
+    """The first load of `dense0` or `tail` builds and loads both (one nvcc
+    each, at once), the sources of a fused call; the first load of
+    `pyramid` builds and loads it with `tail`, the sources of a multi-scale
+    model's non-fused call, and never `dense0`; another source is built
+    alone."""
     built = []
     monkeypatch.setattr(_build, "_libs", {})
     monkeypatch.setattr(_build, "build_all",
@@ -313,4 +316,9 @@ def test_fused_sources_are_built_together(monkeypatch):
     assert _build.load("dense0") == "lib:dense0"
     assert _build.load("tail") == "lib:tail"  # loaded once
     assert _build.load("dense0_image") == "lib:dense0_image"
-    assert built == [("dense0", "tail"), ("dense0", "tail"), ("dense0_image",)]
+    assert built == [("dense0", "tail"), ("dense0_image",)]
+    built.clear()
+    monkeypatch.setattr(_build, "_libs", {})
+    assert _build.load("pyramid") == "lib:pyramid"
+    assert _build.load("tail") == "lib:tail"
+    assert built == [("pyramid", "tail")]
